@@ -1,0 +1,53 @@
+"""The port stands alone: importing uda_clr_tpu_torch and every one of its
+modules, or running chip_smoke.py's imports, loads neither JAX nor any
+module of the JAX package. Checked in a fresh interpreter, since this test
+process has both loaded."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import uda_clr_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import uda_clr_tpu_torch
+names = ['uda_clr_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
+    uda_clr_tpu_torch.__path__, 'uda_clr_tpu_torch.')]
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path('chip_smoke.py', run_name='chip_smoke')
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.')
+             or m == 'flax' or m.startswith('flax.')
+             or m == 'uda_clr_tpu' or m.startswith('uda_clr_tpu.'))
+print(len(names))
+print(' '.join(bad))
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    count, bad = (proc.stdout.splitlines() + ["", ""])[:2]
+    modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
+    assert int(count) == len(modules) + 1 >= 15
+    assert bad == "", f"the port loaded: {bad}"
+
+
+def test_port_sources_name_no_jax():
+    """No source line of the port or of chip_smoke.py imports JAX or the
+    JAX package (exact names: uda_clr_tpu_torch shares the prefix)."""
+    files = sorted((ROOT / "uda_clr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            words = line.replace(",", " ").split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "jaxlib", "flax", "optax", "uda_clr_tpu"), \
+                    f"{path.relative_to(ROOT)}:{n}: {line.strip()}"

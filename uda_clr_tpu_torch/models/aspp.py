@@ -1,0 +1,55 @@
+"""ASPP atrous pyramid (uda_clr_tpu/models/aspp.py), split into ``predrop``
+(everything deterministic) and ``drop`` (the final Dropout(0.5)) so the MC
+path can replicate at the first dropout site. Keys follow the reference:
+``aspp{k}.atrous_conv``/``.bn``, ``global_avg_pool.{1,2}``, ``conv1``,
+``bn1``."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from uda_clr_tpu_torch.models.layers import Conv2d, dropout
+from uda_clr_tpu_torch.models.norm import DomainNorm2d
+from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+
+class _ASPPBranch(nn.Module):
+    def __init__(self, inplanes: int, planes: int, kernel_size: int, dilation: int):
+        super().__init__()
+        pad = 0 if kernel_size == 1 else dilation
+        self.atrous_conv = Conv2d(inplanes, planes, kernel_size, 1, pad, dilation, bias=False)
+        self.bn = DomainNorm2d(planes)
+
+    def forward(self, x, train: bool, domains: int):
+        return F.relu(self.bn(self.atrous_conv(x), train, domains))
+
+
+class ASPP(nn.Module):
+    def __init__(self, inplanes: int = 320, output_stride: int = 16):
+        super().__init__()
+        if output_stride != 16:
+            raise NotImplementedError(f"output_stride {output_stride}")
+        d = (1, 6, 12, 18)
+        self.aspp1 = _ASPPBranch(inplanes, 256, 1, d[0])
+        self.aspp2 = _ASPPBranch(inplanes, 256, 3, d[1])
+        self.aspp3 = _ASPPBranch(inplanes, 256, 3, d[2])
+        self.aspp4 = _ASPPBranch(inplanes, 256, 3, d[3])
+        self.global_avg_pool = nn.ModuleList([
+            nn.AdaptiveAvgPool2d(1), Conv2d(inplanes, 256, 1, bias=False), DomainNorm2d(256),
+        ])
+        self.conv1 = Conv2d(1280, 256, 1, bias=False)
+        self.bn1 = DomainNorm2d(256)
+
+    def predrop(self, x: torch.Tensor, train: bool, domains: int = 1) -> torch.Tensor:
+        """All of ASPP except the final Dropout(0.5)."""
+        branches = [m(x, train, domains) for m in (self.aspp1, self.aspp2, self.aspp3, self.aspp4)]
+        pool, conv, bn = self.global_avg_pool
+        pooled = F.relu(bn(conv(pool(x)), train, domains))
+        branches.append(resize_bilinear_align_corners(pooled, tuple(x.shape[2:])))
+        h = self.conv1(torch.cat(branches, dim=1))
+        return F.relu(self.bn1(h, train, domains))
+
+    def drop(self, h, train: bool, generator: torch.Generator | None):
+        return dropout(h, 0.5, generator, train)

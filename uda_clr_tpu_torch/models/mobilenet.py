@@ -1,0 +1,80 @@
+"""MobileNetV2 backbone, OS16 atrous plan (uda_clr_tpu/models/mobilenet.py
+:36-126). Keys follow the reference: ``features.0.{0,1}`` is the stem,
+``features.{i+1}.conv.{k}`` block i."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from uda_clr_tpu_torch.models.layers import Conv2d, fixed_padding, run_layers
+from uda_clr_tpu_torch.models.norm import DomainNorm2d
+
+# (expand_ratio t, channels c, repeats n, stride s)
+_INVERTED_RESIDUAL_SETTINGS = (
+    (1, 16, 1, 1),
+    (6, 24, 2, 2),
+    (6, 32, 3, 2),
+    (6, 64, 4, 2),
+    (6, 96, 3, 1),
+    (6, 160, 3, 2),
+    (6, 320, 1, 1),
+)
+
+
+def mobilenet_block_plan(output_stride: int = 16):
+    """Per-block (in, out, stride, dilation, t); ``dilation = rate`` is read
+    before ``rate *= s``, as in the reference (mobilenet.py:67-89)."""
+    plan = []
+    in_ch = 32
+    current_stride = 2
+    rate = 1
+    for t, c, n, s in _INVERTED_RESIDUAL_SETTINGS:
+        if current_stride == output_stride:
+            stride, dilation = 1, rate
+            rate *= s
+        else:
+            stride, dilation = s, 1
+            current_stride *= s
+        for i in range(n):
+            plan.append((in_ch, c, stride if i == 0 else 1, dilation, t))
+            in_ch = c
+    return plan
+
+
+class InvertedResidual(nn.Module):
+    def __init__(self, inp: int, oup: int, stride: int, dilation: int, t: int):
+        super().__init__()
+        hidden = round(inp * t)
+        self.dilation = dilation
+        self.use_res = stride == 1 and inp == oup
+        dw = Conv2d(hidden, hidden, 3, stride, 0, dilation, groups=hidden, bias=False)
+        layers = [] if t == 1 else [
+            Conv2d(inp, hidden, 1, 1, 0, bias=False), DomainNorm2d(hidden), nn.ReLU6(),
+        ]
+        layers += [dw, DomainNorm2d(hidden), nn.ReLU6(),
+                   Conv2d(hidden, oup, 1, 1, 0, bias=False), DomainNorm2d(oup)]
+        self.conv = nn.ModuleList(layers)
+
+    def forward(self, x, train: bool, domains: int = 1):
+        h = run_layers(self.conv, fixed_padding(x, 3, self.dilation), train, domains)
+        return x + h if self.use_res else h
+
+
+class MobileNetV2(nn.Module):
+    """Returns (high [B,320,H/os,W/os], low [B,24,H/4,W/4]), NCHW."""
+
+    def __init__(self, output_stride: int = 16):
+        super().__init__()
+        stem = nn.ModuleList([Conv2d(3, 32, 3, 2, 1, bias=False), DomainNorm2d(32), nn.ReLU6()])
+        blocks = [InvertedResidual(*p) for p in mobilenet_block_plan(output_stride)]
+        self.features = nn.ModuleList([stem] + blocks)
+
+    def forward(self, x: torch.Tensor, train: bool, domains: int = 1):
+        h = run_layers(self.features[0], x, train, domains)
+        low = None
+        for idx, block in enumerate(self.features[1:]):
+            h = block(h, train, domains)
+            if idx == 2:  # torch features[0:4] = stem + blocks 0-2
+                low = h
+        return h, low

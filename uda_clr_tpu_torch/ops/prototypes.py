@@ -1,0 +1,109 @@
+"""Class-prototype math (uda_clr_tpu/ops/prototypes.py:34-210), NHWC inputs
+as in the JAX package; every centroid division carries the +1e-12 guard."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+_EPS = 1e-12
+
+
+class Prototypes(NamedTuple):
+    cup_obj: torch.Tensor
+    disc_obj: torch.Tensor
+    cup_bck: torch.Tensor
+    disc_bck: torch.Tensor
+
+    def stack(self) -> torch.Tensor:
+        return torch.stack(list(self))
+
+    @staticmethod
+    def unstack(x: torch.Tensor) -> "Prototypes":
+        return Prototypes(x[0], x[1], x[2], x[3])
+
+
+def _masked_centroid(feature, mask, weight=None):
+    """sum(feature * mask * weight) / (sum(mask * weight) + eps) over (B,H,W)."""
+    w = mask if weight is None else mask * weight
+    num = torch.sum(feature * w, dim=(0, 1, 2))
+    den = torch.sum(w, dim=(0, 1, 2))
+    return num / (den + _EPS)
+
+
+def gen_prototype(pred: torch.Tensor, feature: torch.Tensor) -> Prototypes:
+    """Soft-mask global class centroids; pred [B,h,w,2], feature [B,h,w,C]."""
+    cup, disc = pred[..., 0:1], pred[..., 1:2]
+    return Prototypes(
+        _masked_centroid(feature, cup),
+        _masked_centroid(feature, disc),
+        _masked_centroid(feature, 1.0 - cup),
+        _masked_centroid(feature, 1.0 - disc),
+    )
+
+
+class RectifiedPrototypes(NamedTuple):
+    prototypes: Prototypes
+    std_map: torch.Tensor  # [B, H, W, 2]
+    conf_mask: torch.Tensor  # [B, h, w, 2]
+
+
+def _resize_nhwc(x, hw):
+    return resize_bilinear_align_corners(x.permute(0, 3, 1, 2), hw).permute(0, 2, 3, 1)
+
+
+def _rectify_masks(mask_before, feature, mc_logits, pseudo_threshold, std_threshold):
+    """Per-region (pseudo-label x confidence) masks and mean-MC-probability
+    weights, in Prototypes field order (prototypes.py:113-142)."""
+    h, w = feature.shape[1], feature.shape[2]
+    preds_soft = torch.sigmoid(mc_logits / 2.0)
+    n = mc_logits.shape[0]
+    if n > 1:  # unbiased std over T, as jnp.std(ddof=1)
+        centered = preds_soft - preds_soft.mean(0)
+        std_map = torch.sqrt(torch.sum(centered * centered, 0) / (n - 1))
+    else:
+        std_map = torch.zeros_like(preds_soft[0])
+    prediction = torch.mean(torch.sigmoid(mc_logits), 0)
+    prediction_small = _resize_nhwc(prediction, (h, w))
+    std_small = _resize_nhwc(std_map, (h, w))
+
+    pseudo = (torch.sigmoid(mask_before) > pseudo_threshold).to(feature.dtype)
+    conf = (std_small < std_threshold).to(feature.dtype)
+    masks = (
+        pseudo[..., 0:1] * conf[..., 0:1],
+        pseudo[..., 1:2] * conf[..., 1:2],
+        (1.0 - pseudo[..., 0:1]) * conf[..., 0:1],
+        (1.0 - pseudo[..., 1:2]) * conf[..., 1:2],
+    )
+    weights = (
+        prediction_small[..., 0:1],
+        prediction_small[..., 1:2],
+        1.0 - prediction_small[..., 0:1],
+        1.0 - prediction_small[..., 1:2],
+    )
+    return masks, weights, std_map, conf
+
+
+def gen_prototype_retrify(mask_before, feature, mc_logits,
+                          pseudo_threshold: float = 0.75,
+                          std_threshold: float = 0.04) -> RectifiedPrototypes:
+    """MC-dropout-rectified target centroids. mask_before [B,h,w,2] logits,
+    feature [B,h,w,C], mc_logits [T,B,H,W,2] full-resolution logits."""
+    masks, weights, std_map, conf = _rectify_masks(
+        mask_before, feature, mc_logits, pseudo_threshold, std_threshold)
+    protos = Prototypes(*(_masked_centroid(feature, m, w) for m, w in zip(masks, weights)))
+    return RectifiedPrototypes(protos, std_map, conf)
+
+
+def intra_domain_loss(src: Prototypes, trg: Prototypes) -> torch.Tensor:
+    """Sum of the four matching-centroid MSEs."""
+    return sum(torch.mean(torch.square(s - t)) for s, t in zip(src, trg))
+
+
+def inter_domain_loss(src: Prototypes) -> torch.Tensor:
+    """Source obj-vs-bck separation (logged only)."""
+    return torch.mean(torch.square(src.disc_obj - src.disc_bck)) + torch.mean(
+        torch.square(src.cup_obj - src.cup_bck))

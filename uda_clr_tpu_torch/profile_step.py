@@ -1,0 +1,98 @@
+"""Where the flagship train step's time goes on the card.
+
+    python -m uda_clr_tpu_torch.profile_step [--steps 3]
+
+Builds chip_smoke.py's full-width configuration (mobilenet DeepLabv3+ OS16,
+512x512, 8 source + 8 target images, T=8, bfloat16), runs one warmup and
+two prototype-phase steps untimed, then profiles ``--steps``
+prototype-phase steps with ``torch.profiler``. Prints the device time by
+operator (top 25), the device time grouped into families, and the device
+busy share of the profiled wall time. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from uda_clr_tpu_torch.config import Config
+from uda_clr_tpu_torch.train.state import create_train_state
+from uda_clr_tpu_torch.train.steps import make_train_step
+
+# operator-name fragments -> family, first match wins
+FAMILIES = (
+    ("mask-head kernel", ("mask_head_split",)),
+    ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit_gemm", "winograd")),
+    ("matmul", ("gemm", "mm", "addmm")),
+    ("random (dropout draws)", ("uniform", "rand", "philox", "distribution")),
+    ("reduction (BN moments, losses)", ("sum", "mean", "reduce", "norm")),
+    ("resize", ("upsample", "interpolate")),
+    ("copy (casts, layout changes, cat)", ("copy",)),
+    ("optimizer", ("adam", "sgd", "foreach", "_fused")),
+    ("elementwise", ("elementwise", "vectorized", "mul", "add", "sub", "where", "clamp",
+                     "relu", "sigmoid", "log", "exp", "pow", "div", "fill")),
+)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3, help="profiled prototype-phase steps")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA card")
+
+    b, size = 8, 512
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.method.mc_samples = 8
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in {
+        "image_s": rng.standard_normal((b, size, size, 3)),
+        "map_s": rng.uniform(0, 1, (b, size, size, 2)) > 0.5,
+        "boundary_s": rng.uniform(0, 1, (b, size, size, 1)),
+        "image_t": rng.standard_normal((b, size, size, 3)),
+    }.items()}
+    state = create_train_state(cfg, seed=0, device="cuda")
+    warm = make_train_step(cfg, "prototype_full", proto_phase=False)
+    proto = make_train_step(cfg, "prototype_full", proto_phase=True)
+    state, _ = warm(state, batch, 1e-3, 2.5e-5)
+    for _ in range(2):
+        state, _ = proto(state, batch, 1e-3, 2.5e-5)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, _ = proto(state, batch, 1e-3, 2.5e-5)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # events that ran on the card (kernels, copies, memsets), by name
+    kernels: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    device_ms = sum(kernels.values())
+    per_step = args.steps
+    print(f"{torch.cuda.get_device_name(0)}: {per_step} prototype-phase steps, "
+          f"wall {wall_ms / per_step:.2f} ms/step, device busy {device_ms / per_step:.2f} ms/step "
+          f"({100 * device_ms / wall_ms:.1f}% of wall)")
+    families: dict[str, float] = {}
+    for name, ms in kernels.items():
+        low = name.lower()
+        fam = next((f for f, keys in FAMILIES if any(k in low for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + ms
+    print("device time by family, from kernel-name keywords (ms/step, share of device time):")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:32s} {ms / per_step:9.3f}  {100 * ms / device_ms:5.1f}%")
+    print("top 25 device kernels (ms/step):")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"  {ms / per_step:9.3f}  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()
