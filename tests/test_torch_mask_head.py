@@ -1,5 +1,6 @@
-"""The port's MC mask head (uda_clr_tpu_torch/ops/mask_head.py and the MC
-pass around it, train/steps.py:mc_suffix) against the JAX package's.
+"""The port's mask heads (uda_clr_tpu_torch/ops/mask_head.py: K1
+fused_mask_head_split and the MC pass around it, train/steps.py:mc_suffix;
+K2 fused_mask_head) against the JAX package's.
 
 On the CPU the wrapper runs its plain version; the CUDA kernel is held to
 that plain version elementwise on the card by
@@ -7,7 +8,8 @@ tests/test_torch_mask_head_cuda.py and by chip_smoke.py.
 
 Tolerances: 1e-5 absolute on the epilogue (float32 sums over 305 channels
 taken in another order); 1e-4 on the MC pass, which adds two 3x3 convs and
-two batch norms in float32 before the epilogue."""
+two batch norms in float32 before the epilogue; bitwise in the unit-weight
+bf16 configuration, where each output's float32 sum holds one term."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,11 @@ import torch
 
 from tests.test_torch_models import jax_deeplab_variables, port_deeplab
 from uda_clr_tpu.models import layers as jax_layers
-from uda_clr_tpu.ops.pallas.mask_head import _xla_reference, fused_mask_head_split
+from uda_clr_tpu.ops.pallas.mask_head import (
+    _xla_reference,
+    fused_mask_head,
+    fused_mask_head_split,
+)
 from uda_clr_tpu.train.steps import _mc_suffix
 from uda_clr_tpu_torch.models import layers as port_layers
 from uda_clr_tpu_torch.models.deeplab import nchw
@@ -66,6 +72,63 @@ def test_plain_matches_pallas_interpret_all_kept():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
+def test_plain_matches_pallas_interpret_bf16_unit_weight():
+    """bf16 at rate 0.1 with every element kept: output 0 is channel 7 and
+    output 1 channel 260 after BN, ReLU and dropout (w = 1, bias 0), so the
+    float32 sums hold one term each and the plain version must equal the
+    TPU kernel bit for bit. The TPU kernel scales by 1/keep rounded to bf16
+    (1.109375), not by float32 1/0.9."""
+    a = _inputs(seed=4)
+    a["w"][:] = 0.0
+    a["w"][0, 0, 7, 0] = 1.0
+    a["w"][0, 0, 260, 1] = 1.0
+    a["w_bias"][:] = 0.0
+    bf = lambda k: jnp.asarray(a[k], jnp.bfloat16)
+    want = fused_mask_head_split(
+        bf("x_up"), bf("ll"), bf("boundary"), a["mean"], a["var"], a["scale"], a["bias"],
+        a["w"], a["w_bias"], jax.random.PRNGKey(9), rate=0.1, impl="interpret")
+    args = list(_port_args(a))
+    args[:3] = [t.to(torch.bfloat16) for t in args[:3]]
+    bits = torch.zeros((2 * 16 * 16, 305), dtype=torch.int64)
+    got = mh.mask_head_plain(*args, rate=0.1, bits=bits)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    assert (want != 0).mean() > 0.3  # ReLU leaves enough nonzero outputs to compare
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_k2_plain_matches_pallas_interpret_all_kept():
+    """K2 (x_bu[304] | boundary[1]) against the TPU kernel in interpret mode,
+    every element kept, and against its XLA plain version at rate 0."""
+    a = _inputs(seed=5)
+    x_bu = np.concatenate([a["x_up"], a["ll"]], axis=-1)
+    common = (a["boundary"], a["mean"], a["var"], a["scale"], a["bias"], a["w"], a["w_bias"],
+              jax.random.PRNGKey(3))
+    args = _port_args(a)
+    port_args = (torch.from_numpy(x_bu),) + args[2:]
+    want = fused_mask_head(x_bu, *common, rate=0.1, impl="interpret")
+    bits = torch.zeros((2 * 16 * 16, 305), dtype=torch.int64)
+    got = mh.mask_head_bu_plain(*port_args, rate=0.1, bits=bits)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    want0 = fused_mask_head(x_bu, *common, rate=0.0, impl="xla")
+    got0 = mh.fused_mask_head(*port_args, seed=3, rate=0.0)
+    assert got0.shape == (2, 16, 16, 2)
+    np.testing.assert_allclose(got0.numpy(), np.asarray(want0), rtol=0, atol=1e-5)
+
+
+def test_k2_draws_k1s_stream():
+    """K2 on cat(x_up, ll) equals K1 on the split views with the same seed:
+    channel c of row r is element r*305 + c of the stream in both."""
+    a = _inputs(n=1, hw=8, seed=6)
+    args = _port_args(a)
+    x_bu = torch.cat([args[0], args[1]], dim=-1)
+    seed = kernel_seed(2, 9)
+    k1 = mh.fused_mask_head_split(*args, seed=seed, rate=0.1)
+    k2 = mh.fused_mask_head(x_bu, *args[2:], seed=seed, rate=0.1)
+    assert torch.equal(k1, k2)
+    assert not torch.equal(k1, mh.fused_mask_head_split(*args, seed=seed, rate=0.0))
+
+
 def test_philox_known_answer():
     """Random123's published vector for Philox4x32-10 at counter 0, key 0."""
     zero = torch.zeros(1, dtype=torch.int64)
@@ -108,18 +171,18 @@ def test_plain_dropout_follows_bits():
         torch.tensor(1.0 + 1e-5))
     assert torch.equal(got.reshape(64, 2)[:, 0] == a["w_bias"][0], ~keep)
     torch.testing.assert_close(got.reshape(64, 2)[keep, 0],
-                               h[keep] * mh._inv_keep(0.1) + float(a["w_bias"][0]),
+                               h[keep] * mh.inv_keep(0.1, torch.float32) + float(a["w_bias"][0]),
                                rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture()
 def dropout_off():
-    prev = jax_layers._DROPOUT_IMPL
+    prev = jax_layers._DROPOUT_IMPL, port_layers.dropout_impl()
     jax_layers.set_dropout_impl("off")
-    port_layers.set_dropout_off(True)
+    port_layers.set_dropout_impl("off")
     yield
-    jax_layers.set_dropout_impl(prev)
-    port_layers.set_dropout_off(False)
+    jax_layers.set_dropout_impl(prev[0])
+    port_layers.set_dropout_impl(prev[1])
 
 
 def test_mc_suffix_matches_jax(dropout_off):

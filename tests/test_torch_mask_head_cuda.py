@@ -1,5 +1,5 @@
-"""The CUDA mask-head kernel (uda_clr_tpu_torch/csrc/mask_head.cu) on the
-card, against its plain PyTorch version on the same inputs. Imports neither
+"""The CUDA mask-head kernels (uda_clr_tpu_torch/csrc/mask_head.cu, K1 and
+K2) on the card, against their plain PyTorch version on the same inputs. Imports neither
 JAX nor the JAX package, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_mask_head_cuda.py
@@ -59,3 +59,22 @@ def test_kernel_refuses_what_it_does_not_take(card):
         mh.fused_mask_head_split(args[0].transpose(1, 2), *args[1:], seed=0)
     with pytest.raises(ValueError):  # mixed devices
         mh.fused_mask_head_split(args[0], args[1].cpu(), *args[2:], seed=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain_and_k1(card, dtype):
+    """K2 on x_bu = cat(x_up, ll) against its plain version, and bitwise
+    against K1 on the split views with the same seed (same row code, same
+    element index)."""
+    args = _args(card, dtype)
+    x_bu = torch.cat([args[0], args[1]], dim=-1)
+    seed = kernel_seed(3, 1)
+    before = mh.LAUNCHES_BU
+    got = mh.fused_mask_head(x_bu, *args[2:], seed=seed, rate=0.1)
+    assert mh.LAUNCHES_BU == before + 1
+    k1 = mh.fused_mask_head_split(*args, seed=seed, rate=0.1)
+    want = mh.mask_head_bu_plain(x_bu, *args[2:], seed=seed, rate=0.1).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1)
+    tol = 1e-5 if dtype == torch.float32 else float(want.abs().max()) * 2.0**-7
+    assert float((got.float() - want).abs().max()) <= tol

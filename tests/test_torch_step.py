@@ -88,12 +88,12 @@ def _batch(rng):
 
 @pytest.fixture()
 def dropout_off():
-    prev = jax_layers._DROPOUT_IMPL
+    prev = jax_layers._DROPOUT_IMPL, port_layers.dropout_impl()
     jax_layers.set_dropout_impl("off")
-    port_layers.set_dropout_off(True)
+    port_layers.set_dropout_impl("off")
     yield
-    jax_layers.set_dropout_impl(prev)
-    port_layers.set_dropout_off(False)
+    jax_layers.set_dropout_impl(prev[0])
+    port_layers.set_dropout_impl(prev[1])
 
 
 def test_prototype_full_steps_match_jax(dropout_off):

@@ -1,0 +1,28 @@
+"""The port's generic train step for ``prototype_mt``, the paper's full
+method, against the JAX package's ``make_train_step``: one warmup and two
+prototype-phase iterations from the same weights and batches, dropout off
+on both sides, ``aug_backward`` off (the compiled reference logs loss_aug
+without backwarding it). Every metric is compared, loss_src_reg and
+loss_aug included, and all parameters: the port's augmentation is handed
+the JAX step's own nine draws per image, so both sides augment alike.
+Harness and tolerances: tests/torch_step_harness.py."""
+
+from tests.torch_step_harness import (  # noqa: F401
+    check_banks,
+    check_losses,
+    check_params,
+    dropout_off,
+    run_steps,
+)
+
+BANK_ATOL = 8e-2  # measured 2.6e-2: target pixels cross the hard pseudo-label thresholds
+
+
+def test_prototype_mt_steps_match_jax(dropout_off, monkeypatch):
+    jstate, state, history = run_steps(
+        "prototype_mt", (False, True, True), lambda m: setattr(m, "aug_backward", False),
+        monkeypatch=monkeypatch)
+    assert {"loss_src_reg", "loss_aug", "loss_intra", "loss_inter"} <= set(history[1][0])
+    check_losses(history)
+    check_params(jstate, state, discriminators=(True, True))
+    check_banks(jstate, state, BANK_ATOL)

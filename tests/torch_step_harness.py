@@ -1,0 +1,215 @@
+"""Shared harness of the port-vs-JAX step tests (tests/test_torch_step_*.py):
+the same JAX-initialised weights carried over by the weight bridge, the
+same numpy batches, dropout off on both sides, and both frameworks' train
+steps run side by side.
+
+The mask logits are spread (mask_out x10) so that sigmoid(mask_before)
+straddles the 0.75 pseudo-label threshold, as tests/test_step_parity.py
+does. lr_gen is 1e-5: from the second iteration on, each state inherits
+Adam's first steps, whose size is lr wherever a gradient is nonzero and
+whose sign is noise where the true gradient is ~0 (the biases of batch
+norms that feed another batch norm), so the G params are held by the median
+of their difference in units of lr (a missing or wrong update moves it to
+~lr) and by their largest difference relative to their largest entry."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_models import to_np
+from uda_clr_tpu.config import Config as JaxConfig
+from uda_clr_tpu.models import layers as jax_layers
+from uda_clr_tpu.models.deeplab import DeepLab as JaxDeepLab
+from uda_clr_tpu.train.state import create_train_state as jax_create_train_state
+from uda_clr_tpu.train.steps import make_train_step as jax_make_train_step
+from uda_clr_tpu_torch.config import Config
+from uda_clr_tpu_torch.convert.from_jax import train_state_dicts
+from uda_clr_tpu_torch.models import layers as port_layers
+from uda_clr_tpu_torch.train.state import create_train_state
+from uda_clr_tpu_torch.train.steps import make_train_step
+
+B, SIZE, T = 2, 64, 4
+LR_GEN, LR_DIS, EPOCH = 1e-5, 2.5e-5, 30
+
+# Relative tolerance of each metric per iteration, set with a margin of at
+# least 3x over what was measured on these inputs (torch 2.13 CPU, jax 0.9
+# CPU at matmul precision 'highest'; the largest measured value over the
+# step tests stands in the comment). Iteration 0 is float32 noise over ~60
+# batch norms; later iterations inherit Adam's first-step sign noise.
+RTOL = {
+    "loss_seg": (3e-5, 6e-3, 1e-2),  # 8.2e-6, 1.9e-3, 3.2e-3
+    "loss_all": (3e-5, 6e-3, 1e-2),  # 8.2e-6, 1.9e-3, 3.2e-3
+    "loss_adv": (1e-6, 2e-5, 2e-5),  # 1.3e-7, 4.4e-6, 2.2e-6
+    "loss_D": (1e-6, 1e-5, 3e-5),  # 8.6e-8, 1.4e-6, 6.2e-6
+    "loss_D2": (2e-6, 5e-5, 5e-5),  # 4.3e-7, 1.1e-5, 1.4e-5
+    "loss_consistency": (2e-4, 2e-3, None),  # 4.4e-5, 3.6e-4
+    "loss_intra": (3e-4, 1e-2, 2e-2),  # 6.5e-5, 2.0e-3, 5.3e-3
+    "loss_inter": (1e-4, 2e-3, 1e-3),  # 2.1e-5, 4.1e-4, 2.3e-4
+    "loss_src_reg": (None, 5e-4, 2e-3),  # -, 1.1e-4, 4.5e-4
+    # loss_aug counts pixels through two hard thresholds (pseudo-label, MC
+    # std < 0.04) that the sign noise flips: held at unit level here (7.4e-2,
+    # 1.1e-3), exactly in tests/test_torch_ops_mt.py
+    "loss_aug": (None, 0.25, 0.25),
+}
+# after the iterations, relative to each tensor's largest entry
+PARAM_RTOL = 1e-3  # G and teacher params (measured <= 3.1e-4)
+PARAM_MEDIAN_LR = 0.2  # G params: median |diff| / lr (measured <= 0.037)
+STATS_RTOL = 6e-3  # BN running stats (measured <= 2.0e-3)
+DIS_RTOL = 1e-6  # D params after SGD (measured <= 3.1e-7)
+
+G_PARAMS = (
+    ("backbone.features.0.0.weight", ("backbone", "stem", "conv", "kernel")),
+    ("aspp.conv1.weight", ("aspp", "proj_conv", "conv", "kernel")),
+    ("decoder.last_conv.3.weight", ("decoder", "mask_out", "conv", "kernel")),
+    ("decoder.last_conv_boundary.4.weight", ("decoder", "bound_conv2", "conv", "kernel")),
+)
+BN_STATS = (
+    ("backbone.features.0.1", ("backbone", "stem_bn")),
+    ("aspp.bn1", ("aspp", "proj_bn")),
+    ("decoder.last_conv.0", ("decoder", "mask_bn")),
+    ("decoder.last_conv_boundary.1", ("decoder", "bound_bn1")),
+)
+
+
+def get(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def make_batch(rng, method):
+    batch = {
+        "image_s": rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32),
+        "map_s": (rng.uniform(0, 1, (B, SIZE, SIZE, 2)) > 0.5).astype(np.float32),
+        "boundary_s": rng.uniform(0, 1, (B, SIZE, SIZE, 1)).astype(np.float32),
+        "image_t": rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32),
+    }
+    if method == "baseline":
+        del batch["image_t"]
+    return batch
+
+
+@pytest.fixture()
+def dropout_off():
+    prev = jax_layers._DROPOUT_IMPL, port_layers.dropout_impl()
+    jax_layers.set_dropout_impl("off")
+    port_layers.set_dropout_impl("off")
+    yield
+    jax_layers.set_dropout_impl(prev[0])
+    port_layers.set_dropout_impl(prev[1])
+
+
+def jax_aug_draws(jstate, b: int) -> np.ndarray:
+    """The nine uniforms per image the JAX step's strong_augment draws
+    (steps.py:560 splits k_aug from the state's rng; augment.py:121-162)."""
+    k_aug = jax.random.split(jstate.rng, 6)[3]
+    return np.stack([
+        np.asarray([jax.random.uniform(k) for k in jax.random.split(key, 9)])
+        for key in jax.random.split(k_aug, b)]).astype(np.float32)
+
+
+def run_steps(method: str, phases, configure=None, monkeypatch=None):
+    """Run ``len(phases)`` iterations of ``method`` (``phases`` = the
+    proto_phase flag of each) in both frameworks. ``configure(mcfg)`` edits
+    both method configs. With ``monkeypatch`` the port's augmentation takes
+    the JAX step's draws. Returns (jstate, state, [(got, want) per iter])."""
+    jcfg = JaxConfig()
+    jcfg.model.compute_dtype = "float32"
+    jcfg.method.mc_samples = T
+    jcfg.method.rng_impl = "threefry2x32"  # rbg keys are TPU-only
+    cfg = Config()
+    cfg.method.mc_samples = T
+    if configure is not None:
+        configure(jcfg.method)
+        configure(cfg.method)
+    teacher = method == "mean_teacher"
+    model = JaxDeepLab(num_classes=2, backbone="mobilenet", output_stride=16, norm="bn")
+    jstate = jax_create_train_state(model, jax.random.PRNGKey(0), (B, SIZE, SIZE, 3),
+                                    with_teacher=teacher)
+    params = to_np(jstate.gen_params)
+    params["decoder"]["mask_out"]["conv"]["kernel"] *= 10.0
+    gp = jax.tree.map(jnp.asarray, params)
+    jstate = jstate.replace(gen_params=gp)
+    if teacher:
+        jstate = jstate.replace(teacher_params=jax.tree.map(jnp.copy, gp))
+    state = create_train_state(cfg, seed=0, device="cpu", method=method,
+                               **train_state_dicts(jstate))
+
+    jax_steps, port_steps = {}, {}
+    rng = np.random.default_rng(7)
+    history = []
+    for proto in phases:
+        if proto not in jax_steps:
+            jax_steps[proto] = jax_make_train_step(model, jcfg, method, proto_phase=proto)
+            port_steps[proto] = make_train_step(cfg, method, proto_phase=proto)
+        if monkeypatch is not None:
+            draws = torch.from_numpy(jax_aug_draws(jstate, B))
+            monkeypatch.setattr("uda_clr_tpu_torch.train.steps.augment_draws",
+                                lambda seed, b, device: draws)
+        batch = make_batch(rng, method)
+        jstate, want = jax_steps[proto](jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+                                        LR_GEN, LR_DIS, EPOCH)
+        state, got = port_steps[proto](state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                       LR_GEN, LR_DIS, EPOCH)
+        want = {k: float(v) for k, v in want.items() if not k.startswith("_")}
+        history.append(({k: v.item() for k, v in got.items()}, want))
+    assert state.step == int(jstate.step) == len(phases)
+    return jstate, state, history
+
+
+def check_losses(history):
+    """Every metric of every iteration: the same keys on both sides, each
+    finite, and relative agreement within ``RTOL[key][iteration]``."""
+    for it, (got, want) in enumerate(history):
+        assert set(got) == set(want), f"iter {it}: {sorted(got)} vs {sorted(want)}"
+        for k in want:
+            assert np.isfinite(got[k]), f"iter {it}: {k} = {got[k]}"
+            rel = abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+            assert rel <= RTOL[k][it], f"iter {it}: {k} port {got[k]} jax {want[k]} rel {rel:.2e}"
+
+
+def close(got, want, rtol, what):
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= rtol, f"{what}: max diff {err:.2e} of the largest entry > {rtol}"
+
+
+def _check_model(sd, params, stats, what):
+    for key, path in G_PARAMS:
+        want = np.asarray(get(params, path)).transpose(3, 2, 0, 1)
+        close(sd[key].numpy(), want, PARAM_RTOL, f"{what} {key}")
+        median = np.median(np.abs(sd[key].numpy() - want)) / LR_GEN
+        assert median <= PARAM_MEDIAN_LR, f"{what} {key}: median diff {median:.3f} lr"
+    for key, path in BN_STATS:
+        node = get(stats, path)
+        for ours, theirs in (("running_mean", "mean"), ("running_var", "var")):
+            close(sd[f"{key}.{ours}"].numpy(), np.asarray(node[theirs]), STATS_RTOL,
+                  f"{what} {key}.{ours}")
+
+
+def check_params(jstate, state, discriminators: tuple):
+    """G params and BN running stats, the mean teacher's if there is one,
+    and the discriminators: ``discriminators`` = (boundary D, entropy D)
+    that the port's state must hold."""
+    _check_model(state.gen.state_dict(), jstate.gen_params, jstate.gen_stats, "gen")
+    if state.teacher is not None:
+        _check_model(state.teacher.state_dict(), jstate.teacher_params, jstate.teacher_stats,
+                     "teacher")
+    assert (state.dis is not None, state.dis2 is not None) == discriminators
+    for dis, jparams in ((state.dis, jstate.dis_params), (state.dis2, jstate.dis2_params)):
+        if dis is None:
+            continue
+        for i in (1, 5):
+            want = np.asarray(get(jparams, (f"conv{i}", "conv", "kernel"))).transpose(3, 2, 0, 1)
+            close(getattr(dis, f"conv{i}").weight.detach().numpy(), want, DIS_RTOL, f"conv{i}")
+
+
+def check_banks(jstate, state, atol: float):
+    """The EMA prototype banks, absolute (their entries are <= ~1)."""
+    assert bool(state.proto_src_init) and bool(jstate.proto_src_init)
+    for name in ("proto_src", "proto_trg"):
+        np.testing.assert_allclose(getattr(state, name).numpy(), np.asarray(getattr(jstate, name)),
+                                   rtol=0, atol=atol, err_msg=name)

@@ -1,6 +1,6 @@
-"""The config fields the flagship train step reads (own copy of
-uda_clr_tpu/config.py's ModelConfig, OptimConfig and MethodConfig subset;
-defaults identical)."""
+"""The config fields the port's train steps read (own copy of
+uda_clr_tpu/config.py:18-116's ModelConfig, OptimConfig and MethodConfig
+subset; defaults identical)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,12 @@ class OptimConfig:
 @dataclass
 class MethodConfig:
     adv_weight: float = 0.01
+    # ablation switches (uda_clr_tpu/train/steps.py:make_train_step)
+    use_adv: bool = True  # False: no discriminator game (Trainer_MT_wo_ad)
+    use_boundary_d: bool = True  # boundary PatchGAN
+    use_entropy_d: bool = True  # entropy PatchGAN; method='posal' forces False
+    use_boundary_loss: bool = True  # False: no MSE boundary term (Trainer_baseline_wob)
+    # prototype stack (prototype_full, prototype_mt)
     use_global: bool = True
     retrify_pseudo: bool = True
     pro_weight: float = 0.1
@@ -43,6 +49,16 @@ class MethodConfig:
     mc_fast: bool = True
     std_threshold: float = 0.04
     pseudo_threshold: float = 0.75
+    # intra-domain category regularization (prototype_mt)
+    use_trg_cons: bool = True
+    aug_weight: float = 0.1
+    aug_backward: bool = False  # True: add aug_weight * loss_aug to the G loss
+    src_reg: bool = True
+    src_reg_weight: float = 0.01
+    # mean teacher
+    ema_decay: float = 0.99
+    consistency: float = 1.0
+    teacher_noise: float = 0.1  # sigma of the gaussian noise on the teacher's input
 
 
 @dataclass

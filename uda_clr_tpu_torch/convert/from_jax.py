@@ -7,6 +7,8 @@ written here without importing them: conv kernels go HWIO -> OIHW (a
 depthwise [k,k,1,C] kernel becomes [C,1,k,k] by the same transpose), BN
 ``scale``/``bias`` -> ``weight``/``bias``, batch stats ``mean``/``var`` ->
 ``running_mean``/``running_var``. MobileNet backbone only (this slice).
+:func:`train_state_dicts` carries a whole JAX ``TrainState`` across: the
+generator, the discriminators it holds and the mean teacher.
 """
 
 from __future__ import annotations
@@ -77,3 +79,20 @@ def discriminator_state_dict(params: dict) -> dict:
     for i in range(1, 6):
         _conv(sd, f"conv{i}", params[f"conv{i}"])
     return sd
+
+
+def train_state_dicts(jstate, output_stride: int = 16) -> dict:
+    """The keyword state_dicts of ``train.state.create_train_state`` from a
+    JAX ``TrainState`` (read by attribute: ``gen_params``/``gen_stats``,
+    ``dis_params``, ``dis2_params``, ``teacher_params``/``teacher_stats``);
+    a field that is None or absent gives None."""
+    get = lambda name: getattr(jstate, name, None)
+    out = {"gen_state_dict": deeplab_state_dict(get("gen_params"), get("gen_stats"),
+                                                output_stride)}
+    for key, name in (("dis_state_dict", "dis_params"), ("dis2_state_dict", "dis2_params")):
+        params = get(name)
+        out[key] = None if params is None else discriminator_state_dict(params)
+    teacher = get("teacher_params")
+    out["teacher_state_dict"] = None if teacher is None else deeplab_state_dict(
+        teacher, get("teacher_stats"), output_stride)
+    return out

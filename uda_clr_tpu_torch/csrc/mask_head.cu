@@ -1,17 +1,24 @@
-// Fused MC mask-head epilogue for Hopper (sm_90a).
+// Fused MC mask-head epilogue for Hopper (sm_90a), two entry points:
 //
-// Replaces the TPU kernel uda_clr_tpu/ops/pallas/mask_head.py:_kernel_split
-// (launched by _fused_split, entry fused_mask_head_split). Semantics are
-// those of its plain version, _xla_reference (mask_head.py:134-151), with the
-// 305 input channels arriving as three row-major views that are never
-// concatenated: x_up [M,256], ll [M,48], boundary [M,1]. Per row:
+// * uda_mask_head_split (K1) replaces the TPU kernel
+//   uda_clr_tpu/ops/pallas/mask_head.py:_kernel_split (launched by
+//   _fused_split, entry fused_mask_head_split): the 305 input channels arrive
+//   as three row-major views that are never concatenated, x_up [M,256],
+//   ll [M,48], boundary [M,1];
+// * uda_mask_head (K2) replaces mask_head.py:_kernel (launched by _fused,
+//   entry fused_mask_head): x_bu [M,304] and boundary [M,1].
+//
+// Both run the same row code: K2 reads channels 0-255 and 256-303 of x_bu
+// through the two views K1 takes, with x_bu's row stride. Semantics are those
+// of the plain version, _xla_reference (mask_head.py:134-151). Per row:
 //
 //   h   = relu((x - mu) * a + beta)            each op rounded to T
 //   h   = bits < threshold ? h * inv_keep : 0  (dropout, rounded to T)
 //   out = sum_c h[c] * W[c, :] + bias          (float32 sums, rounded to T)
 //
 // a = rsqrt(var + eps) * scale, mu, beta and W are precomputed by the wrapper
-// (already rounded to T, stored as float32) and staged in shared memory.
+// (already rounded to T, stored as float32) and staged in shared memory;
+// inv_keep is 1/keep rounded to T, as the TPU kernels scale.
 // bits is word (e & 3) of Philox4x32-10 at counter (e >> 2, 0), key = seed,
 // for the element index e = row * 305 + channel; the wrapper's plain
 // version replays the same stream.
@@ -32,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kCx = 256;
@@ -39,40 +48,18 @@ constexpr int kCl = 48;
 constexpr int kC = 305;
 constexpr int kWarps = 8;  // rows in flight per block
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint4 philox_group(uint64_t g, uint2 key) {
-  return philox4x32_10(make_uint4(uint32_t(g), uint32_t(g >> 32), 0u, 0u), key);
-}
-
-__device__ __forceinline__ uint32_t word(uint4 r, int j) {
-  return j == 0 ? r.x : j == 1 ? r.y : j == 2 ? r.z : r.w;
-}
-
 // Random words of the 8 consecutive elements e0 .. e0+7.
 __device__ __forceinline__ void bits8(uint64_t e0, uint2 key, uint32_t out[8]) {
   const uint64_t g0 = e0 >> 2;
   const int off = int(e0 & 3);
-  const uint4 r0 = philox_group(g0, key);
-  const uint4 r1 = philox_group(g0 + 1, key);
-  const uint4 r2 = off ? philox_group(g0 + 2, key) : r0;
+  const uint4 r0 = uda::philox_group(g0, key);
+  const uint4 r1 = uda::philox_group(g0 + 1, key);
+  const uint4 r2 = off ? uda::philox_group(g0 + 2, key) : r0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int idx = off + i;  // 0 .. 10
     const uint4 r = idx < 4 ? r0 : idx < 8 ? r1 : r2;
-    out[i] = word(r, idx & 3);
+    out[i] = uda::philox_word(r, idx & 3);
   }
 }
 
@@ -137,8 +124,10 @@ template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32)
 mask_head_split_kernel(const T* __restrict__ x, const T* __restrict__ ll,
                        const T* __restrict__ bnd, const float* __restrict__ coef,
-                       T* __restrict__ out, int64_t m, uint64_t seed, uint32_t threshold,
-                       float inv_keep) {
+                       T* __restrict__ out, int64_t m, int64_t x_stride, int64_t ll_stride,
+                       uint64_t seed, uint32_t threshold, float inv_keep) {
+  // x_stride / ll_stride: elements between rows of the x (channels 0-255)
+  // and ll (channels 256-303) views; 256 / 48 for K1, 304 / 304 for K2.
   // coef is [5, 305] (mu | a | beta | W[:,0] | W[:,1]) then bias[2]. Lane L
   // always owns channels 8L..8L+7 of x (and of ll for L < 6), so each part
   // is staged as [k][i][lane]: the 32 lanes' reads of element i hit 32
@@ -159,7 +148,7 @@ mask_head_split_kernel(const T* __restrict__ x, const T* __restrict__ ll,
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const uint2 key = make_uint2(uint32_t(seed), uint32_t(seed >> 32));
+  const uint2 key = uda::philox_key(seed);
   uint32_t bits[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   float v[8];
 
@@ -168,7 +157,7 @@ mask_head_split_kernel(const T* __restrict__ x, const T* __restrict__ ll,
     const uint64_t e_row = uint64_t(row) * kC;
     float acc0 = 0.f, acc1 = 0.f;
 
-    Io<T>::load8(x + row * kCx + lane * 8, v);
+    Io<T>::load8(x + row * x_stride + lane * 8, v);
     if (kDrop) bits8(e_row + lane * 8, key, bits);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -176,7 +165,7 @@ mask_head_split_kernel(const T* __restrict__ x, const T* __restrict__ ll,
                            acc0, acc1);
 
     if (lane < kCl / 8) {
-      Io<T>::load8(ll + row * kCl + lane * 8, v);
+      Io<T>::load8(ll + row * ll_stride + lane * 8, v);
       if (kDrop) bits8(e_row + kCx + lane * 8, key, bits);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -184,7 +173,7 @@ mask_head_split_kernel(const T* __restrict__ x, const T* __restrict__ ll,
                              acc0, acc1);
     } else if (lane == kCl / 8) {
       const uint64_t e = e_row + kC - 1;
-      const uint32_t b = kDrop ? word(philox_group(e >> 2, key), int(e & 3)) : 0u;
+      const uint32_t b = kDrop ? uda::philox_word(uda::philox_group(e >> 2, key), int(e & 3)) : 0u;
       accumulate<T, kDrop>(Io<T>::load1(bnd + row), sb, 1, b, threshold, inv_keep, acc0,
                            acc1);
     }
@@ -200,30 +189,23 @@ mask_head_split_kernel(const T* __restrict__ x, const T* __restrict__ ll,
 
 template <typename T>
 void launch(const void* x, const void* ll, const void* bnd, const float* coef, void* out,
-            int64_t m, uint64_t seed, uint32_t threshold, float inv_keep, bool drop,
-            int grid, cudaStream_t stream) {
+            int64_t m, int64_t x_stride, int64_t ll_stride, uint64_t seed, uint32_t threshold,
+            float inv_keep, bool drop, int grid, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* lt = static_cast<const T*>(ll);
   const T* bt = static_cast<const T*>(bnd);
   T* ot = static_cast<T*>(out);
   if (drop)
     mask_head_split_kernel<T, true><<<grid, kWarps * 32, 0, stream>>>(
-        xt, lt, bt, coef, ot, m, seed, threshold, inv_keep);
+        xt, lt, bt, coef, ot, m, x_stride, ll_stride, seed, threshold, inv_keep);
   else
     mask_head_split_kernel<T, false><<<grid, kWarps * 32, 0, stream>>>(
-        xt, lt, bt, coef, ot, m, seed, threshold, inv_keep);
+        xt, lt, bt, coef, ot, m, x_stride, ll_stride, seed, threshold, inv_keep);
 }
 
-}  // namespace
-
-// Launches on `stream` of card `device` (the caller's tensors' card: this
-// library's runtime keeps its own current device). Returns cudaGetLastError()
-// after the launch (0 = launched).
-extern "C" int uda_mask_head_split(const void* x, const void* ll, const void* bnd,
-                                   const void* coef, void* out, long long m,
-                                   unsigned long long seed, unsigned int threshold,
-                                   float inv_keep, int drop, int is_bf16, int device,
-                                   void* stream) {
+int run(const void* x, const void* ll, const void* bnd, const void* coef, void* out, long long m,
+        long long x_stride, long long ll_stride, unsigned long long seed, unsigned int threshold,
+        float inv_keep, int drop, int is_bf16, int device, void* stream) {
   if (m <= 0) return 0;
   int sms = 0;
   cudaError_t err = cudaSetDevice(device);
@@ -235,8 +217,38 @@ extern "C" int uda_mask_head_split(const void* x, const void* ll, const void* bn
   const float* c = static_cast<const float*>(coef);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    launch<__nv_bfloat16>(x, ll, bnd, c, out, m, seed, threshold, inv_keep, drop != 0, grid, s);
+    launch<__nv_bfloat16>(x, ll, bnd, c, out, m, x_stride, ll_stride, seed, threshold, inv_keep,
+                          drop != 0, grid, s);
   else
-    launch<float>(x, ll, bnd, c, out, m, seed, threshold, inv_keep, drop != 0, grid, s);
+    launch<float>(x, ll, bnd, c, out, m, x_stride, ll_stride, seed, threshold, inv_keep,
+                  drop != 0, grid, s);
   return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both entries launch on `stream` of card `device` (the caller's tensors'
+// card: this library's runtime keeps its own current device) and return
+// cudaGetLastError() after the launch (0 = launched).
+
+// K1: x [m,256], ll [m,48], bnd [m,1] row-major.
+extern "C" int uda_mask_head_split(const void* x, const void* ll, const void* bnd,
+                                   const void* coef, void* out, long long m,
+                                   unsigned long long seed, unsigned int threshold,
+                                   float inv_keep, int drop, int is_bf16, int device,
+                                   void* stream) {
+  return run(x, ll, bnd, coef, out, m, kCx, kCl, seed, threshold, inv_keep, drop, is_bf16, device,
+             stream);
+}
+
+// K2: x_bu [m,304], bnd [m,1] row-major; the element index of channel c of
+// row r is r*305 + c, as in K1, so K2 on cat(x_up, ll) equals K1 bitwise.
+extern "C" int uda_mask_head(const void* x_bu, const void* bnd, const void* coef, void* out,
+                             long long m, unsigned long long seed, unsigned int threshold,
+                             float inv_keep, int drop, int is_bf16, int device, void* stream) {
+  const int64_t width = kCx + kCl;
+  const void* ll = is_bf16 ? static_cast<const void*>(static_cast<const __nv_bfloat16*>(x_bu) + kCx)
+                           : static_cast<const void*>(static_cast<const float*>(x_bu) + kCx);
+  return run(x_bu, ll, bnd, coef, out, m, width, width, seed, threshold, inv_keep, drop, is_bf16,
+             device, stream);
 }

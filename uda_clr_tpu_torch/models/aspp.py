@@ -10,7 +10,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from uda_clr_tpu_torch.models.layers import Conv2d, dropout
+from uda_clr_tpu_torch.models.layers import Conv2d, DropoutStream, dropout
 from uda_clr_tpu_torch.models.norm import DomainNorm2d
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
 
@@ -51,5 +51,5 @@ class ASPP(nn.Module):
         h = self.conv1(torch.cat(branches, dim=1))
         return F.relu(self.bn1(h, train, domains))
 
-    def drop(self, h, train: bool, generator: torch.Generator | None):
-        return dropout(h, 0.5, generator, train)
+    def drop(self, h, train: bool, stream: DropoutStream | None):
+        return dropout(h, 0.5, stream, train)

@@ -32,16 +32,16 @@ class Decoder(nn.Module):
         """Deterministic low-level projection (conv1 + bn1 + relu)."""
         return F.relu(self.bn1(self.conv1(low), train, domains))
 
-    def suffix_bound(self, x, ll, train: bool, domains: int, generator):
+    def suffix_bound(self, x, ll, train: bool, domains: int, stream):
         """Upsample + concat + the boundary head."""
         x = resize_bilinear_align_corners(x, tuple(ll.shape[2:]))
         x_bu = torch.cat([x, ll], dim=1)  # [B, 304, h, w]
-        boundary = run_layers(self.last_conv_boundary, x_bu, train, domains, generator)
+        boundary = run_layers(self.last_conv_boundary, x_bu, train, domains, stream)
         return x_bu, boundary
 
-    def suffix(self, x, ll, train: bool, domains: int, generator):
+    def suffix(self, x, ll, train: bool, domains: int, stream):
         """Upsample + boundary head + mask head (all the dropout sites)."""
-        x_bu, boundary = self.suffix_bound(x, ll, train, domains, generator)
+        x_bu, boundary = self.suffix_bound(x, ll, train, domains, stream)
         x_feature = torch.cat([x_bu, boundary], dim=1)  # [B, 305, h, w]
-        x1 = run_layers(self.last_conv, x_feature, train, domains, generator)
+        x1 = run_layers(self.last_conv, x_feature, train, domains, stream)
         return x1, boundary, x_bu, x_feature

@@ -16,7 +16,7 @@ import torch.nn as nn
 
 from uda_clr_tpu_torch.models.aspp import ASPP
 from uda_clr_tpu_torch.models.decoder import Decoder
-from uda_clr_tpu_torch.models.layers import Conv2d, init_conv_
+from uda_clr_tpu_torch.models.layers import Conv2d, DropoutStream, init_conv_
 from uda_clr_tpu_torch.models.mobilenet import MobileNetV2
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
 
@@ -62,18 +62,22 @@ class DeepLab(nn.Module):
         return self.aspp.predrop(high, train, domains), self.decoder.low_prefix(low, train, domains)
 
     def heads_suffix(self, feat_predrop, ll, out_hw, train: bool = False,
-                     domains: int = 1, generator: torch.Generator | None = None):
-        """ASPP dropout + decoder heads + align-corners upsample to ``out_hw``."""
-        feat = self.aspp.drop(feat_predrop, train, generator)
-        x1, boundary, x_bu, x_feature = self.decoder.suffix(feat, ll, train, domains, generator)
+                     domains: int = 1, stream: DropoutStream | None = None):
+        """ASPP dropout + decoder heads + align-corners upsample to ``out_hw``.
+        Without a ``stream`` the dropout sites draw from torch's default
+        generator and a K3 seed from it (host side)."""
+        if stream is None and train:
+            stream = DropoutStream(None, int(torch.randint(2**62, ())))
+        feat = self.aspp.drop(feat_predrop, train, stream)
+        x1, boundary, x_bu, x_feature = self.decoder.suffix(feat, ll, train, domains, stream)
         mask_logits = resize_bilinear_align_corners(x1, out_hw)
         boundary_logits = resize_bilinear_align_corners(boundary, out_hw)
         return DeepLabOutputs(*(nhwc(t) for t in (
             mask_logits, boundary_logits, feat, x_bu, x_feature, x1, boundary)))
 
     def forward(self, x_nhwc: torch.Tensor, train: bool = False, domains: int = 1,
-                generator: torch.Generator | None = None) -> DeepLabOutputs:
+                stream: DropoutStream | None = None) -> DeepLabOutputs:
         x = nchw(x_nhwc)
         high, low = self.features(x, train, domains)
         fp, ll = self.heads_prefix(high, low, train, domains)
-        return self.heads_suffix(fp, ll, tuple(x.shape[2:]), train, domains, generator)
+        return self.heads_suffix(fp, ll, tuple(x.shape[2:]), train, domains, stream)

@@ -14,6 +14,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uda_clr_tpu_torch.models.norm import DomainNorm2d
+from uda_clr_tpu_torch.ops.dropout import fused_dropout
+from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
 
 
 class Conv2d(nn.Conv2d):
@@ -49,32 +51,92 @@ def fixed_padding(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Ten
     return F.pad(x, (beg, end, beg, end))
 
 
-# Every dropout an identity while BN stays in train mode: the counterpart of
-# uda_clr_tpu's set_dropout_impl('off'), for parity tests only (the two
-# frameworks' random streams cannot coincide).
-_DROPOUT_OFF = False
+# Dropout backend, the JAX package's five names (uda_clr_tpu/models/layers.py
+# :71-100), read at every call:
+#   'xla16' (default) - 16-bit random words, kept when < min(round(keep *
+#     65536), 65535): keep probability quantised to 2^-16;
+#   'xla' - exact-rate Bernoulli from float32 uniforms;
+#   'pallas' / 'auto' - the fused dropout kernel K3 (ops/dropout.py): on a
+#     CUDA tensor it launches, on a CPU tensor its plain version runs;
+#   'off' - every dropout an identity while batch norm stays in train mode
+#     (the parity tests: the two frameworks' random streams cannot coincide).
+# The masks of the first two come from the stream's torch.Generator; K3 draws
+# from a 64-bit seed per site. Survivors are x / round_dt(keep) rounded to
+# x's dtype (layers.py:138); K3 scales by round_dt(1/keep), as its TPU kernel.
+IMPLS = ("auto", "xla", "xla16", "pallas", "off")
+_DROPOUT_IMPL = "xla16"
 
 
-def set_dropout_off(off: bool) -> None:
-    global _DROPOUT_OFF
-    _DROPOUT_OFF = bool(off)
+def set_dropout_impl(impl: str) -> None:
+    global _DROPOUT_IMPL
+    if impl not in IMPLS:
+        raise ValueError(f"dropout impl {impl!r}; one of {IMPLS}")
+    _DROPOUT_IMPL = impl
 
 
-def dropout_off() -> bool:
-    return _DROPOUT_OFF
+def dropout_impl() -> str:
+    return _DROPOUT_IMPL
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            train: bool = True) -> torch.Tensor:
-    """Exact-rate dropout drawn from ``generator`` (zero with prob ``rate``,
-    survivors scaled by 1/keep, computed in float32 and rounded once). The
-    draws take ``x``'s memory format, so a channels_last activation stays
-    channels_last."""
-    if not train or rate == 0.0 or _DROPOUT_OFF:
-        return x
-    keep = 1.0 - rate
+class DropoutStream:
+    """The random source of one forward's dropout sites: ``generator`` for
+    the mask draws of 'xla16'/'xla', and a fresh 64-bit K3 seed per site
+    (splitmix64 of ``seed`` and the site's index; host integers, no
+    device sync)."""
+
+    def __init__(self, generator: torch.Generator | None, seed: int = 0):
+        self.generator = generator
+        self.seed = seed
+        self.sites = 0
+
+    def next_seed(self) -> int:
+        self.sites += 1
+        return splitmix64((self.seed + self.sites) & MASK64)
+
+
+def _bernoulli_mask(x: torch.Tensor, keep: float, generator, sixteen_bit: bool) -> torch.Tensor:
+    """The keep mask of 'xla16' (sixteen_bit) or 'xla', in x's memory format."""
+    if sixteen_bit:
+        thr = min(int(round(keep * 65536.0)), 65535)
+        bits = torch.empty_like(x, dtype=torch.int16).random_(-32768, 32768, generator=generator)
+        return bits < thr - 32768
     u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator)
-    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return u < keep
+
+
+def apply_keep_mask(x: torch.Tensor, mask: torch.Tensor, rate: float) -> torch.Tensor:
+    """``where(mask, x / round_dt(keep), 0)`` rounded to x's dtype, exactly
+    the JAX package's ``jnp.where(mask, x / keep, 0)`` for a weakly typed
+    keep. keep is a device tensor: a CPU scalar would turn the division into
+    a multiply by its reciprocal on the card."""
+    keep_t = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x / keep_t, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def bernoulli_dropout(x: torch.Tensor, rate: float, generator, sixteen_bit: bool) -> torch.Tensor:
+    return apply_keep_mask(x, _bernoulli_mask(x, 1.0 - rate, generator, sixteen_bit), rate)
+
+
+def dropout(x: torch.Tensor, rate: float, stream: DropoutStream | None,
+            train: bool = True) -> torch.Tensor:
+    """A model dropout site under the current backend (TpuDropout,
+    layers.py:102-138)."""
+    impl = _DROPOUT_IMPL
+    if not train or rate == 0.0 or impl == "off":
+        return x
+    if impl in ("pallas", "auto"):
+        return fused_dropout(x, stream.next_seed(), rate)
+    return bernoulli_dropout(x, rate, stream.generator, impl == "xla16")
+
+
+def mc_dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """A dropout site of the MC pass (steps.py:_mc_drop :110-125): the same
+    backends but never the kernel; under 'pallas'/'auto' it draws
+    exact-rate Bernoulli masks."""
+    impl = _DROPOUT_IMPL
+    if impl == "off" or rate == 0.0:
+        return x
+    return bernoulli_dropout(x, rate, generator, impl == "xla16")
 
 
 class Dropout(nn.Module):
@@ -84,18 +146,18 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, train: bool, generator: torch.Generator | None):
-        return dropout(x, self.rate, generator, train)
+    def forward(self, x, train: bool, stream: DropoutStream | None):
+        return dropout(x, self.rate, stream, train)
 
 
-def run_layers(layers, x, train: bool, domains: int, generator=None):
+def run_layers(layers, x, train: bool, domains: int, stream=None):
     """Apply a reference-indexed layer list: norms take (train, domains),
-    dropouts (train, generator), everything else x alone."""
+    dropouts (train, stream), everything else x alone."""
     for layer in layers:
         if isinstance(layer, DomainNorm2d):
             x = layer(x, train, domains)
         elif isinstance(layer, Dropout):
-            x = layer(x, train, generator)
+            x = layer(x, train, stream)
         else:
             x = layer(x)
     return x

@@ -12,6 +12,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 
@@ -51,8 +53,14 @@ class DomainNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    # False inside :func:`frozen_stats`: train-mode forwards then write no
+    # running stats (the JAX package's ``mutable=False`` applies)
+    update_stats = True
+
     @torch.no_grad()
     def _ema(self, mean, var, n: int):
+        if not self.update_stats:
+            return
         m = self.momentum
         unbias = n / max(n - 1, 1)
         self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
@@ -76,3 +84,17 @@ class DomainNorm2d(nn.Module):
         z = normalize(x2, mu2[:, None, :], v2[:, None, :], scale[:, None, :],
                       self.bias, self.eps)
         return z.flatten(0, 1)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Within the block, train-mode forwards of ``module`` normalise with
+    batch moments as usual but write no running stats."""
+    norms = [m for m in module.modules() if isinstance(m, DomainNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True

@@ -30,6 +30,29 @@ def bce_sigmoid_stable(logits: torch.Tensor, targets: torch.Tensor) -> torch.Ten
     return _BceSigmoidStable.apply(logits, targets)
 
 
+class _BceSigmoidStableElementwise(torch.autograd.Function):
+    """Elementwise ``BCELoss(sigmoid(x), t)`` with the -100 log clamp in the
+    value and the bounded gradient ``g * (sigmoid(x) - t)`` (losses.py
+    :85-104)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        ctx.save_for_backward(logits, targets)
+        p = torch.sigmoid(logits)
+        log_p = torch.clamp(torch.log(p), min=-100.0)
+        log_1p = torch.clamp(torch.log1p(-p), min=-100.0)
+        return -(targets * log_p + (1.0 - targets) * log_1p)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets = ctx.saved_tensors
+        return g * (torch.sigmoid(logits) - targets), None
+
+
+def bce_sigmoid_stable_elementwise(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return _BceSigmoidStableElementwise.apply(logits, targets)
+
+
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean ``max(x,0) - x t + log(1 + exp(-|x|))``."""
     return torch.mean(torch.clamp(logits, min=0.0) - logits * targets

@@ -1,13 +1,20 @@
 """Fused MC mask-head epilogue: BN apply (batch moments given) + ReLU +
-dropout + 1x1 conv 305 -> 2, over three row views x_up[256] | ll[48] |
-boundary[1] whose 305-channel concat never exists.
+dropout + 1x1 conv 305 -> 2, two entry points over the same row code:
 
-Replaces the TPU kernel ``uda_clr_tpu/ops/pallas/mask_head.py:_kernel_split``
-(entry ``fused_mask_head_split``). On a CUDA tensor the wrapper launches the
-hand-written kernel ``csrc/mask_head.cu`` or raises; there is no fallback.
-On a CPU tensor it runs :func:`mask_head_plain`, the plain PyTorch version
-with the same rounding points and the same Philox4x32-10 dropout stream, so
-the two agree elementwise at any rate.
+* :func:`fused_mask_head_split` (K1) takes three row views x_up[256] |
+  ll[48] | boundary[1] whose 305-channel concat never exists; it replaces
+  the TPU kernel ``uda_clr_tpu/ops/pallas/mask_head.py:_kernel_split``
+  (entry ``fused_mask_head_split``) and runs in the MC pass;
+* :func:`fused_mask_head` (K2) takes x_bu[304] | boundary[1]; it replaces
+  ``mask_head.py:_kernel`` (entry ``fused_mask_head``), which no path of
+  the JAX package calls.
+
+On a CUDA tensor each wrapper launches its entry of the hand-written
+kernel ``csrc/mask_head.cu`` or raises; there is no fallback. On a CPU
+tensor it runs :func:`mask_head_plain`, the plain PyTorch version with the
+same rounding points (kept elements scale by 1/keep rounded to the input
+dtype, as the TPU kernel does) and the same Philox4x32-10 dropout stream,
+so the two agree elementwise at any rate.
 
 The kernel's least time is set by bytes: it reads each input once (~640 MB
 at the flagship shape in bf16, ~0.19 ms on an H100) and writes [M, 2]. This
@@ -15,57 +22,33 @@ first version runs well above that, held back by the integer work of its
 Philox draws (same time in float32 as in bf16); see the source for its
 design and PERF.md for its times.
 Built with ``nvcc`` for sm_90a into ``build/kernels/`` at first use and
-bound through a plain C entry point with ctypes.
+bound through plain C entry points with ctypes (ops/cuda_build.py).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 
+from uda_clr_tpu_torch.ops import cuda_build
+from uda_clr_tpu_torch.ops.cuda_build import F32, I64, INT, P, U32, U64
+from uda_clr_tpu_torch.ops.philox import (  # noqa: F401  (re-exported for callers)
+    MASK32,
+    inv_keep,
+    keep_threshold,
+    philox4x32_10,
+    philox_words,
+)
+
 C_X, C_L, C_ALL = 256, 48, 305
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "mask_head.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-# Launches of the CUDA kernel; a run can show the main path went through it.
-LAUNCHES = 0
+LIBRARY = cuda_build.KernelLibrary("mask_head.cu", {
+    "uda_mask_head_split": [P] * 5 + [I64, U64, U32, F32, INT, INT, INT, P],
+    "uda_mask_head": [P] * 4 + [I64, U64, U32, F32, INT, INT, INT, P],
+})
 
-_lib = None
-build_log = ""
-
-_MASK32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def _mulhilo(a: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) 32-bit words of the 64-bit product a*c, in int64 without
-    overflow (c holds 32-bit words)."""
-    p1 = c * (a & 0xFFFF)  # < 2^48
-    p2 = c * (a >> 16)  # < 2^48
-    s = ((p2 & 0xFFFF) << 16) + p1
-    return (p2 >> 16) + (s >> 32), s & _MASK32
-
-
-def philox4x32_10(ctr_lo: torch.Tensor, ctr_hi: torch.Tensor, seed: int):
-    """Philox4x32-10 at counters (ctr_lo, ctr_hi, 0, 0), key = 64-bit seed;
-    returns the four output words as int64 tensors."""
-    c0, c1 = ctr_lo, ctr_hi
-    c2 = c3 = torch.zeros_like(ctr_lo)
-    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
-    for i in range(10):
-        if i:
-            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
-        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
+# Launches of each CUDA entry; a run can show the main path went through it.
+LAUNCHES = 0  # K1, fused_mask_head_split
+LAUNCHES_BU = 0  # K2, fused_mask_head
 
 
 def philox_bits(m: int, seed: int, device, rows_per_chunk: int = 1 << 15) -> torch.Tensor:
@@ -75,23 +58,8 @@ def philox_bits(m: int, seed: int, device, rows_per_chunk: int = 1 << 15) -> tor
     flat = out.view(-1)
     for r0 in range(0, m, rows_per_chunk):
         e0, e1 = r0 * C_ALL, min(m, r0 + rows_per_chunk) * C_ALL
-        g = torch.arange(e0 >> 2, ((e1 - 1) >> 2) + 1, device=device, dtype=torch.int64)
-        words = torch.stack(philox4x32_10(g & _MASK32, g >> 32, seed), dim=1).view(-1)
-        start = e0 - 4 * (e0 >> 2)
-        flat[e0:e1] = words[start:start + (e1 - e0)]
+        flat[e0:e1] = philox_words(e0, e1, seed, device)
     return out
-
-
-def keep_threshold(rate: float) -> int:
-    """A draw is kept when it is < floor(keep * 2^32)."""
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    return int((1.0 - rate) * 2.0**32)
-
-
-def _inv_keep(rate: float) -> float:
-    """1/keep as the float32 both versions multiply by."""
-    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
 
 
 def _coefficients(mean, var, scale, bias, w, w_bias, dt, eps):
@@ -118,68 +86,60 @@ def mask_head_plain(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
     if rate > 0.0:
         if bits is None:
             bits = philox_bits(xf.shape[0], seed, xf.device)
-        h = torch.where(bits < keep_threshold(rate), (h.float() * _inv_keep(rate)).to(dt),
+        h = torch.where(bits < keep_threshold(rate), h * inv_keep(rate, dt),
                         torch.zeros((), dtype=dt, device=h.device))
     out = h.float() @ torch.stack([w0, w1], dim=1) + coef[5 * C_ALL:]
     return out.to(dt).reshape(*lead, 2)
 
 
-def _load():
-    """Build (once per source digest) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"libuda_mask_head_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE}:\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.uda_mask_head_split
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+def mask_head_bu_plain(x_bu, boundary, mean, var, scale, bias, w, w_bias,
+                       seed: int = 0, rate: float = 0.1, eps: float = 1e-5, bits=None):
+    """Plain version of K2: :func:`mask_head_plain` on the 256 | 48 split
+    of x_bu [..., 304]."""
+    return mask_head_plain(x_bu[..., :C_X], x_bu[..., C_X:], boundary, mean, var, scale, bias,
+                           w, w_bias, seed, rate, eps, bits)
 
 
-def build() -> str:
-    """Compile and load the kernel now; returns nvcc's log (empty when the
-    library for this source was already built)."""
-    _load()
-    return build_log
-
-
-def _check_cuda_inputs(x_up, ll, boundary):
-    lead = x_up.shape[:-1]
-    for t, c, name in ((x_up, C_X, "x_up"), (ll, C_L, "ll"), (boundary, 1, "boundary")):
-        if not t.is_cuda or t.device != x_up.device:
-            raise ValueError(f"{name} must be on {x_up.device}, got {t.device}")
-        if t.dtype != x_up.dtype or t.dtype not in (torch.float32, torch.bfloat16):
+def _check_cuda_inputs(parts):
+    """``parts``: (tensor, channels, name), the first one setting the
+    device, dtype and leading shape."""
+    first = parts[0][0]
+    lead = first.shape[:-1]
+    for t, c, name in parts:
+        if not t.is_cuda or t.device != first.device:
+            raise ValueError(f"{name} must be on {first.device}, got {t.device}")
+        if t.dtype != first.dtype or t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes one of float32/bfloat16")
         if t.shape[:-1] != lead or t.shape[-1] != c:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, want {tuple(lead) + (c,)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous row-major [..., {c}] "
                              "(a channels_last NCHW tensor's NHWC view)")
-    for t, name in ((x_up, "x_up"), (ll, "ll")):
-        if t.data_ptr() % 16:
+        if c > 1 and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch(entry: str, tensors, coef_args, seed: int, rate: float, eps: float):
+    """Launch ``entry`` on the row views ``tensors`` (boundary last);
+    returns [..., 2] in their dtype."""
+    first = tensors[0]
+    dt = first.dtype
+    threshold = keep_threshold(rate)
+    fn = getattr(LIBRARY.load(), entry)
+    coef = _coefficients(*coef_args, dt, eps).to(first.device)
+    out = torch.empty(first.shape[:-1] + (2,), dtype=dt, device=first.device)
+    err = fn(*(t.data_ptr() for t in tensors), coef.data_ptr(), out.data_ptr(),
+             out.numel() // 2, seed & 0xFFFFFFFFFFFFFFFF, min(threshold, MASK32),
+             inv_keep(rate, dt) if rate else 1.0, int(rate > 0.0), int(dt == torch.bfloat16),
+             first.device.index, cuda_build.stream_of(first))
+    cuda_build.check_launch(err, "mask-head")
+    return out
 
 
 def fused_mask_head_split(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
                           seed: int, rate: float = 0.1, eps: float = 1e-5):
-    """x_up [..., 256], ll [..., 48], boundary [..., 1] (NHWC rows), the
+    """K1. x_up [..., 256], ll [..., 48], boundary [..., 1] (NHWC rows), the
     305-channel batch ``mean``/``var``, BN ``scale``/``bias`` [305], conv
     weight ``w`` [2, 305, 1, 1] and bias [2]; dropout at ``rate`` from the
     64-bit ``seed``. Returns [..., 2] in the input dtype."""
@@ -187,19 +147,24 @@ def fused_mask_head_split(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
         return mask_head_plain(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
                                seed, rate, eps)
     global LAUNCHES
-    _check_cuda_inputs(x_up, ll, boundary)
-    threshold = keep_threshold(rate)
-    lib = _load()
-    dt = x_up.dtype
-    coef = _coefficients(mean, var, scale, bias, w, w_bias, dt, eps).to(x_up.device)
-    out = torch.empty(x_up.shape[:-1] + (2,), dtype=dt, device=x_up.device)
-    m = out.numel() // 2
-    err = lib.uda_mask_head_split(
-        x_up.data_ptr(), ll.data_ptr(), boundary.data_ptr(), coef.data_ptr(), out.data_ptr(),
-        m, seed & 0xFFFFFFFFFFFFFFFF, min(threshold, _MASK32), _inv_keep(rate) if rate else 1.0,
-        int(rate > 0.0), int(dt == torch.bfloat16), x_up.device.index,
-        torch.cuda.current_stream(x_up.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mask-head kernel launch failed: CUDA error {err}")
+    _check_cuda_inputs(((x_up, C_X, "x_up"), (ll, C_L, "ll"), (boundary, 1, "boundary")))
+    out = _launch("uda_mask_head_split", (x_up, ll, boundary),
+                  (mean, var, scale, bias, w, w_bias), seed, rate, eps)
     LAUNCHES += 1
+    return out
+
+
+def fused_mask_head(x_bu, boundary, mean, var, scale, bias, w, w_bias,
+                    seed: int, rate: float = 0.1, eps: float = 1e-5):
+    """K2: the same epilogue over x_bu [..., 304] and boundary [..., 1].
+    The element index of channel c of row r is r*305 + c, as in K1, so on
+    ``x_bu = cat(x_up, ll)`` with the same seed the two agree bitwise."""
+    if not x_bu.is_cuda:
+        return mask_head_bu_plain(x_bu, boundary, mean, var, scale, bias, w, w_bias,
+                                  seed, rate, eps)
+    global LAUNCHES_BU
+    _check_cuda_inputs(((x_bu, C_X + C_L, "x_bu"), (boundary, 1, "boundary")))
+    out = _launch("uda_mask_head", (x_bu, boundary), (mean, var, scale, bias, w, w_bias),
+                  seed, rate, eps)
+    LAUNCHES_BU += 1
     return out

@@ -1,4 +1,4 @@
-"""Class-prototype math (uda_clr_tpu/ops/prototypes.py:34-210), NHWC inputs
+"""Class-prototype math (uda_clr_tpu/ops/prototypes.py:34-253), NHWC inputs
 as in the JAX package; every centroid division carries the +1e-12 guard."""
 
 from __future__ import annotations
@@ -107,3 +107,25 @@ def inter_domain_loss(src: Prototypes) -> torch.Tensor:
     """Source obj-vs-bck separation (logged only)."""
     return torch.mean(torch.square(src.disc_obj - src.disc_bck)) + torch.mean(
         torch.square(src.cup_obj - src.cup_bck))
+
+
+def source_discriminative_loss(feature: torch.Tensor, pred: torch.Tensor,
+                               protos: Prototypes) -> torch.Tensor:
+    """Prototype-guided hinge on source (prototypes.py:212-253): per-pixel
+    channel-mean squared distances to the own- and opposite-region
+    centroids, hinged with margin 0.01, weighted by the region's soft GT
+    mask and reduced with a plain mean. feature [B,h,w,C], pred [B,h,w,2];
+    gradients reach both the features and the centroids."""
+    margin = 0.01
+
+    def chan_dist(c):
+        return torch.mean(torch.square(feature - c), dim=-1)
+
+    d_cup_obj, d_cup_bck = chan_dist(protos.cup_obj), chan_dist(protos.cup_bck)
+    d_disc_obj, d_disc_bck = chan_dist(protos.disc_obj), chan_dist(protos.disc_bck)
+    cup, disc = pred[..., 0], pred[..., 1]
+    relu = torch.relu
+    return (torch.mean(cup * relu(d_cup_obj - d_cup_bck + margin))
+            + torch.mean((1.0 - cup) * relu(d_cup_bck - d_cup_obj + margin))
+            + torch.mean(disc * relu(d_disc_obj - d_disc_bck + margin))
+            + torch.mean((1.0 - disc) * relu(d_disc_bck - d_disc_obj + margin)))

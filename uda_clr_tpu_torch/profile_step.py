@@ -1,10 +1,12 @@
-"""Where the flagship train step's time goes on the card.
+"""Where a prototype-phase train step's time goes on the card.
 
-    python -m uda_clr_tpu_torch.profile_step [--steps 3]
+    python -m uda_clr_tpu_torch.profile_step [--method prototype_full] [--dropout xla16] [--steps 3]
 
 Builds chip_smoke.py's full-width configuration (mobilenet DeepLabv3+ OS16,
-512x512, 8 source + 8 target images, T=8, bfloat16), runs one warmup and
-two prototype-phase steps untimed, then profiles ``--steps``
+512x512, 8 source + 8 target images, T=8, bfloat16) for ``--method``
+(``prototype_full`` or ``prototype_mt``) under the ``--dropout`` backend
+(``set_dropout_impl``; ``pallas`` runs the fused dropout kernel), runs one
+warmup and two prototype-phase steps untimed, then profiles ``--steps``
 prototype-phase steps with ``torch.profiler``. Prints the device time by
 operator (top 25), the device time grouped into families, and the device
 busy share of the profiled wall time. Needs a CUDA card.
@@ -20,12 +22,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from uda_clr_tpu_torch.config import Config
+from uda_clr_tpu_torch.models import layers
 from uda_clr_tpu_torch.train.state import create_train_state
 from uda_clr_tpu_torch.train.steps import make_train_step
 
 # operator-name fragments -> family, first match wins
 FAMILIES = (
     ("mask-head kernel", ("mask_head_split",)),
+    ("dropout kernel", ("dropout_kernel",)),
     ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit_gemm", "winograd")),
     ("matmul", ("gemm", "mm", "addmm")),
     ("random (dropout draws)", ("uniform", "rand", "philox", "distribution")),
@@ -41,6 +45,8 @@ FAMILIES = (
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3, help="profiled prototype-phase steps")
+    ap.add_argument("--method", default="prototype_full", choices=("prototype_full", "prototype_mt"))
+    ap.add_argument("--dropout", default="xla16", choices=layers.IMPLS, help="dropout backend")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -56,9 +62,10 @@ def main() -> None:
         "boundary_s": rng.uniform(0, 1, (b, size, size, 1)),
         "image_t": rng.standard_normal((b, size, size, 3)),
     }.items()}
-    state = create_train_state(cfg, seed=0, device="cuda")
-    warm = make_train_step(cfg, "prototype_full", proto_phase=False)
-    proto = make_train_step(cfg, "prototype_full", proto_phase=True)
+    layers.set_dropout_impl(args.dropout)
+    state = create_train_state(cfg, seed=0, device="cuda", method=args.method)
+    warm = make_train_step(cfg, args.method, proto_phase=False)
+    proto = make_train_step(cfg, args.method, proto_phase=True)
     state, _ = warm(state, batch, 1e-3, 2.5e-5)
     for _ in range(2):
         state, _ = proto(state, batch, 1e-3, 2.5e-5)
@@ -78,7 +85,8 @@ def main() -> None:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     device_ms = sum(kernels.values())
     per_step = args.steps
-    print(f"{torch.cuda.get_device_name(0)}: {per_step} prototype-phase steps, "
+    print(f"{torch.cuda.get_device_name(0)}: {args.method}, dropout {args.dropout}, "
+          f"{per_step} prototype-phase steps, "
           f"wall {wall_ms / per_step:.2f} ms/step, device busy {device_ms / per_step:.2f} ms/step "
           f"({100 * device_ms / wall_ms:.1f}% of wall)")
     families: dict[str, float] = {}

@@ -24,6 +24,15 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+@torch.no_grad()
+def weight_ema(teacher: torch.nn.Module, student: torch.nn.Module, alpha: float) -> None:
+    """Mean-teacher shadow update ``t = alpha*t + (1-alpha)*s`` of every
+    parameter, in place (optim.py:41-48)."""
+    t_params, s_params = list(teacher.parameters()), list(student.parameters())
+    torch._foreach_mul_(t_params, alpha)
+    torch._foreach_add_(t_params, torch._foreach_mul(s_params, 1.0 - alpha))
+
+
 def gen_lr_schedule(epoch: int, lr0: float, step_epochs: int = 100, rate: float = 0.2) -> float:
     """The reference's non-compounding decay: ``lr0`` before epoch 100 and
     ``rate * lr0`` from then on (optim.py:50-56)."""

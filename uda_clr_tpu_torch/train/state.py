@@ -1,9 +1,11 @@
-"""Training state (uda_clr_tpu/train/state.py:26-150): the generator and
-both discriminators, their three optimizers, the two EMA prototype banks
-with their "seeded yet" flags, and the step's random sources."""
+"""Training state (uda_clr_tpu/train/state.py:26-150): the generator, the
+discriminators the method plays against, their optimizers, the two EMA
+prototype banks with their "seeded yet" flags, the mean teacher's shadow
+model, and the step's random sources."""
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 
 import torch
@@ -19,51 +21,78 @@ from uda_clr_tpu_torch.models.gan import (
 from uda_clr_tpu_torch.train import optim as optim_lib
 
 FEATURE_DIM = 305  # decoder x_feature channels
+METHODS = ("baseline", "adversarial", "posal", "prototype_full", "prototype_mt", "mean_teacher")
 
 
 @dataclass
 class TrainState:
     gen: DeepLab
-    dis: PatchDiscriminator  # boundary discriminator
-    dis2: PatchDiscriminator  # uncertainty (entropy) discriminator
+    dis: PatchDiscriminator | None  # boundary discriminator
+    dis2: PatchDiscriminator | None  # uncertainty (entropy) discriminator
     gen_opt: torch.optim.Adam
-    dis_opt: torch.optim.SGD
-    dis2_opt: torch.optim.SGD
+    dis_opt: torch.optim.SGD | None
+    dis2_opt: torch.optim.SGD | None
     proto_src: torch.Tensor  # [4, 305] (cup_obj, disc_obj, cup_bck, disc_bck)
     proto_trg: torch.Tensor
     proto_src_init: torch.Tensor  # bool scalar
     proto_trg_init: torch.Tensor
-    generator: torch.Generator  # every dropout draw of the step
-    seed: int  # base seed of the mask-head kernel's Philox stream
+    generator: torch.Generator  # the mask draws of the 'xla16'/'xla' dropout backends
+    seed: int  # base of the kernels' 64-bit Philox seeds
     step: int = 0
+    teacher: DeepLab | None = None  # mean teacher: EMA of gen's params, gen's running stats
+
+
+def discriminators_used(cfg: Config, method: str) -> tuple[bool, bool]:
+    """(boundary D, entropy D) that ``method``'s step plays against
+    (steps.py:538-545): none for the baseline or with ``use_adv`` off;
+    ``posal`` forces the entropy D off."""
+    mcfg = cfg.method
+    if method not in METHODS:
+        raise NotImplementedError(f"method {method!r} is not ported yet")
+    if method == "baseline" or not mcfg.use_adv:
+        return False, False
+    return mcfg.use_boundary_d, mcfg.use_entropy_d and method != "posal"
 
 
 def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = "cuda",
                        gen_state_dict=None, dis_state_dict=None,
-                       dis2_state_dict=None) -> TrainState:
-    """Build the modules from ``seed`` (or load the given state_dicts, e.g.
-    from :mod:`uda_clr_tpu_torch.convert.from_jax`), move them to ``device``
-    (``channels_last`` on the card) and create the optimizers."""
+                       dis2_state_dict=None, method: str = "prototype_full",
+                       teacher_state_dict=None) -> TrainState:
+    """Build the modules ``method`` needs from ``seed`` (or load the given
+    state_dicts, e.g. from :mod:`uda_clr_tpu_torch.convert.from_jax`), move
+    them to ``device`` (``channels_last`` on the card) and create the
+    optimizers. ``mean_teacher`` gets a teacher that starts as a copy of
+    the generator unless ``teacher_state_dict`` is given."""
     device = resolve_device(device)
+    use_bd, use_ed = discriminators_used(cfg, method)
     gen = DeepLab(cfg.model.num_classes, cfg.model.backbone, cfg.model.output_stride,
                   seed=seed)
-    dis = BoundaryDiscriminator(seed + 1)
-    dis2 = UncertaintyDiscriminator(seed + 2)
+    dis = BoundaryDiscriminator(seed + 1) if use_bd else None
+    dis2 = UncertaintyDiscriminator(seed + 2) if use_ed else None
     for module, sd in ((gen, gen_state_dict), (dis, dis_state_dict), (dis2, dis2_state_dict)):
+        if module is None:
+            continue
         if sd is not None:
             module.load_state_dict(sd)
         module.to(device)
         if device.type == "cuda":
             module.to(memory_format=torch.channels_last)
+    teacher = None
+    if method == "mean_teacher":
+        teacher = copy.deepcopy(gen)
+        if teacher_state_dict is not None:
+            teacher.load_state_dict(teacher_state_dict)
+        teacher.requires_grad_(False)
     zeros = torch.zeros((4, FEATURE_DIM), dtype=torch.float32, device=device)
     return TrainState(
         gen=gen, dis=dis, dis2=dis2,
         gen_opt=optim_lib.make_gen_optimizer(gen.parameters(), cfg.optim),
-        dis_opt=optim_lib.make_dis_optimizer(dis.parameters(), cfg.optim),
-        dis2_opt=optim_lib.make_dis_optimizer(dis2.parameters(), cfg.optim),
+        dis_opt=optim_lib.make_dis_optimizer(dis.parameters(), cfg.optim) if dis else None,
+        dis2_opt=optim_lib.make_dis_optimizer(dis2.parameters(), cfg.optim) if dis2 else None,
         proto_src=zeros.clone(), proto_trg=zeros.clone(),
         proto_src_init=torch.zeros((), dtype=torch.bool, device=device),
         proto_trg_init=torch.zeros((), dtype=torch.bool, device=device),
         generator=torch.Generator(device).manual_seed(seed),
         seed=seed,
+        teacher=teacher,
     )

@@ -1,13 +1,24 @@
-"""The flagship ``prototype_full`` train step (uda_clr_tpu/train/steps.py
-:make_train_step, its ``mc_inline`` branch :582-657 and ``_mc_suffix``
-:136-231), in both phases: warmup (``proto_phase=False``) and the prototype
-phase with T-sample MC-dropout rectification on the inlined fast path.
+"""The generic single-forward train step (uda_clr_tpu/train/steps.py
+:make_train_step :493-1050, with its ``mc_inline`` branch :582-657 and
+``_mc_suffix`` :136-231) for ``baseline``, ``adversarial``, ``posal``,
+``prototype_full``, ``prototype_mt`` and ``mean_teacher``, switched by the
+method and the config's flags as the JAX step is.
 
-One S||T forward with ``domains=2`` feeds the G loss, both D losses (on
-detached outputs) and the prototype pooling; running stats update as each
-part of the forward runs. The prototype phase reuses the target halves of
-(ASPP-predrop, low-level) for the MC pass, which writes no running stats and
-runs its mask head through the hand-written kernel (ops/mask_head.py).
+One forward of the batch (S||T with ``domains=2`` when the method uses the
+target; the source alone for the baseline) feeds the G loss, the D losses
+(on detached outputs) and the prototype pooling; running stats update as
+each part of the forward runs. The prototype phase reuses the target halves
+of (ASPP-predrop, low-level) for the MC pass, which writes no running stats
+and runs its mask head through the hand-written kernel K1
+(ops/mask_head.py). ``prototype_mt`` adds the source discriminative loss
+and the augmented-consistency loss on target, whose augmented forward
+writes no running stats either. ``mean_teacher`` adds an eval-mode teacher
+forward and the teacher's EMA after the student's update.
+
+Randomness: the 'xla16'/'xla' dropout backends draw from the state's
+generator; the fused dropout kernel K3, K1 and the augmentation draw from
+64-bit Philox seeds derived on the host from (state.seed, state.step), so no
+step syncs with the device.
 
 bf16: the batch is cast to ``cfg.model.compute_dtype`` once; every conv
 casts its float32 weight to the activation dtype, norms reduce in float32,
@@ -16,29 +27,40 @@ and losses run in float32 (explicit casts, no autocast).
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from uda_clr_tpu_torch.config import Config
 from uda_clr_tpu_torch.models import layers as layers_lib
 from uda_clr_tpu_torch.models.deeplab import DeepLab, DeepLabOutputs, nchw, nhwc
-from uda_clr_tpu_torch.models.norm import batch_moments, normalize
+from uda_clr_tpu_torch.models.norm import batch_moments, frozen_stats, normalize
 from uda_clr_tpu_torch.ops import losses as L
 from uda_clr_tpu_torch.ops import prototypes as P
+from uda_clr_tpu_torch.ops.augment import augment_draws, strong_augment
 from uda_clr_tpu_torch.ops.mask_head import fused_mask_head_split
+from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 from uda_clr_tpu_torch.train import optim as optim_lib
-from uda_clr_tpu_torch.train.state import TrainState
+from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
 
 _CL = torch.channels_last
+
+# sub-streams of a step's seed; K1 takes the step seed itself
+_MAIN_FORWARD, _AUG_FORWARD, _AUG_DRAWS = 1, 2, 3
 
 
 def kernel_seed(seed: int, step: int) -> int:
     """64-bit Philox key of a step's mask-head draw (splitmix64 of the base
     seed and step counter; host integers only, no device sync)."""
-    z = (seed * 0x9E3779B97F4A7C15 + step + 1) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return z ^ (z >> 31)
+    return splitmix64((seed * 0x9E3779B97F4A7C15 + step) & MASK64)
+
+
+def stream_seed(step_seed: int, stream: int) -> int:
+    """The seed of one sub-stream of a step (a forward's dropout sites, the
+    augmentation draws), distinct from the step seed K1 uses."""
+    return splitmix64((step_seed ^ (stream << 56)) & MASK64)
 
 
 def _conv(x, weight, padding: int, bias=None):
@@ -52,11 +74,13 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
     """T dropout-sampled mask-head passes from the deterministic prefix
     (NCHW ``feat_predrop`` [B,256,h',w'] and ``ll`` [B,48,h,w]); returns
     [T, B, H, W, 2] mask logits. Writes no running stats: BN uses batch
-    moments computed here (steps.py:93-107,136-231)."""
+    moments computed here (steps.py:93-107,136-231). Its dropout sites
+    follow ``_mc_drop`` (never K3); the mask head is K1 at rate 0.1 from
+    ``seed``."""
     H, W = hw
     dec = gen.decoder
     bc = dec.last_conv_boundary
-    drop = layers_lib.dropout
+    drop = layers_lib.mc_dropout
     # replicate at the first dropout site: one flat T*B batch
     feat_rep = torch.cat([feat_predrop] * t_samples, dim=0)
     ll_rep = torch.cat([ll] * t_samples, dim=0).contiguous(memory_format=_CL)
@@ -82,7 +106,7 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
         nhwc(x_up), nhwc(ll_rep), nhwc(boundary),
         torch.cat([m for m, _ in moments]), torch.cat([v for _, v in moments]),
         mask_bn.weight, mask_bn.bias, mask_out.weight, mask_out.bias,
-        seed, rate=0.0 if layers_lib.dropout_off() else 0.1,
+        seed, rate=0.0 if layers_lib.dropout_impl() == "off" else 0.1,
     )
     mc = resize_bilinear_align_corners(nchw(x1), (H, W))
     return nhwc(mc).reshape(t_samples, b, H, W, -1)
@@ -103,61 +127,113 @@ def _dis_loss(dis, x_s, x_t):
         L.bce_with_logits(out_t, torch.zeros_like(out_t))
 
 
-def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bool = False):
-    """Build ``step(state, batch, lr_gen, lr_dis, epoch) -> (state, metrics)``.
+def consistency_threshold(epoch: float) -> float:
+    """The ramped pseudo-label threshold of loss_aug, in float32
+    (steps.py:905-908): (0.85 + 0.25 * exp(-5 (1 - clip(epoch, 0, 200)/200)^2)) ln 2."""
+    f = np.float32
+    ramp = np.exp(f(-5.0) * np.square(f(1.0) - np.clip(f(epoch), f(0.0), f(200.0)) / f(200.0)))
+    return float((f(0.85) + f(0.25) * ramp) * f(math.log(2.0)))
 
-    ``batch``: image_s, map_s, boundary_s, image_t, NHWC float32 tensors on
-    the state's device. ``metrics`` holds detached 0-d tensors (no host sync
-    inside the step). The state's modules and optimizers update in place.
+
+def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bool = False):
+    """Build ``step(state, batch, lr_gen, lr_dis, epoch=0) -> (state, metrics)``.
+
+    ``batch``: image_s, map_s, boundary_s (and image_t unless the method is
+    the baseline), NHWC float32 tensors on the state's device; optionally
+    ``consistency_weight`` for the mean teacher. ``metrics`` holds detached
+    0-d tensors (no host sync inside the step). The state's modules and
+    optimizers update in place. ``proto_phase`` selects the prototype phase
+    of ``prototype_full``/``prototype_mt`` (their warmup otherwise); the
+    other methods ignore it.
     """
     mcfg = cfg.method
-    if method != "prototype_full" or cfg.model.norm != "bn":
-        raise NotImplementedError(f"{method}/{cfg.model.norm} is not ported yet")
-    if proto_phase and not (mcfg.retrify_pseudo and mcfg.mc_fast):
+    if cfg.model.norm != "bn":
+        raise NotImplementedError(f"norm {cfg.model.norm!r} is not ported yet")
+    use_boundary_d, use_entropy_d = discriminators_used(cfg, method)
+    if method == "posal":
+        method = "adversarial"
+    use_target = method != "baseline"
+    use_adv = use_boundary_d or use_entropy_d
+    use_proto = method in ("prototype_full", "prototype_mt") and proto_phase
+    use_mt_losses = method == "prototype_mt" and proto_phase
+    use_cons = use_mt_losses and mcfg.use_trg_cons
+    if use_cons and not mcfg.retrify_pseudo:
+        raise ValueError("use_trg_cons requires retrify_pseudo=True: loss_aug is weighted "
+                         "by gen_prototype_retrify's MC-std confidence masks")
+    if use_proto and mcfg.retrify_pseudo and not mcfg.mc_fast:
         raise NotImplementedError("only the inlined MC-rectified prototype phase is ported")
+    use_teacher = method == "mean_teacher"
     dt = cfg.model.dtype
 
-    def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=None):
+    def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
         gen, g = state.gen, state.generator
+        step_seed = kernel_seed(state.seed, state.step)
         image_s = batch["image_s"].to(dt)
         map_s, boundary_s = batch["map_s"], batch["boundary_s"]
         b = image_s.shape[0]
-        x_all = nchw(torch.cat([image_s, batch["image_t"].to(dt)], dim=0))
+        image_t = batch["image_t"].to(dt) if use_target else None
+        x_all = nchw(torch.cat([image_s, image_t], dim=0) if use_target else image_s)
         hw = tuple(x_all.shape[2:])
+        domains = 2 if use_target else 1
 
-        # ---- one S||T forward (domains=2) ----
-        high, low = gen.features(x_all, True, 2)
-        fp_all, ll_all = gen.heads_prefix(high, low, True, 2)
-        outs = gen.heads_suffix(fp_all, ll_all, hw, True, 2, g)
+        # ---- teacher forward (eval mode, noised target view) ----
+        teacher_out = None
+        if use_teacher:
+            t_in = image_t
+            if mcfg.teacher_noise > 0.0:
+                noise = torch.randn(image_t.shape, generator=g, device=image_t.device)
+                t_in = image_t + (mcfg.teacher_noise * noise).to(dt)
+            with torch.no_grad():
+                teacher_out = state.teacher(t_in, train=False)
+
+        # ---- one forward of the batch ----
+        high, low = gen.features(x_all, True, domains)
+        fp_all, ll_all = gen.heads_prefix(high, low, True, domains)
+        outs = gen.heads_suffix(fp_all, ll_all, hw, True, domains,
+                                layers_lib.DropoutStream(g, stream_seed(step_seed, _MAIN_FORWARD)))
         mc = None
-        if proto_phase:
+        if use_proto and mcfg.retrify_pseudo:
             mc = mc_suffix(gen, fp_all[b:].detach(), ll_all[b:].detach(), hw, b,
-                           mcfg.mc_samples, g, kernel_seed(state.seed, state.step)).float()
-        out_s, out_t = _split(outs, b)
+                           mcfg.mc_samples, g, step_seed).float()
+        out_s, out_t = _split(outs, b) if use_target else (outs, None)
 
         # ---- generator loss ----
         o_s = out_s.mask_logits.float()
         b_s = out_s.boundary_logits.float()
-        loss_seg = L.bce_sigmoid_stable(o_s, map_s) + L.mse(torch.sigmoid(b_s), boundary_s)
-        o_t = out_t.mask_logits.float()
-        bd_t = out_t.boundary_logits.float()
-        # reference term order: entropy-D first, boundary-D second
-        d_u = state.dis2(L.entropy_map(o_t).to(dt)).float()
-        adv = L.bce_with_logits(d_u, torch.ones_like(d_u))
-        d_b = state.dis(torch.sigmoid(bd_t).to(dt)).float()
-        adv = adv + L.bce_with_logits(d_b, torch.ones_like(d_b))
-        loss_adv = mcfg.adv_weight * adv
-        loss = loss_seg + loss_adv
-        metrics = {"loss_seg": loss_seg, "loss_adv": loss_adv}
+        loss_seg = L.bce_sigmoid_stable(o_s, map_s)
+        if mcfg.use_boundary_loss:
+            loss_seg = loss_seg + L.mse(torch.sigmoid(b_s), boundary_s)
+        loss = loss_seg
+        metrics = {"loss_seg": loss_seg}
+        if use_target:
+            o_t = out_t.mask_logits.float()
+            bd_t = out_t.boundary_logits.float()
+        if use_adv:
+            # reference term order: entropy-D first, boundary-D second
+            adv = 0.0
+            if use_entropy_d:
+                d_u = state.dis2(L.entropy_map(o_t).to(dt)).float()
+                adv = adv + L.bce_with_logits(d_u, torch.ones_like(d_u))
+            if use_boundary_d:
+                d_b = state.dis(torch.sigmoid(bd_t).to(dt)).float()
+                adv = adv + L.bce_with_logits(d_b, torch.ones_like(d_b))
+            loss_adv = mcfg.adv_weight * adv
+            loss = loss + loss_adv
+            metrics["loss_adv"] = loss_adv
 
-        if proto_phase:
+        rect = None
+        if use_proto:
             x_feat_s = out_s.x_feature.float()
             pred_s = nhwc(resize_nearest(nchw(map_s), tuple(x_feat_s.shape[1:3])))
             src = P.gen_prototype(pred_s, x_feat_s)
-            rect = P.gen_prototype_retrify(
-                out_t.mask_before.float(), out_t.x_feature.float(), mc,
-                mcfg.pseudo_threshold, mcfg.std_threshold)
-            trg = rect.prototypes
+            if mcfg.retrify_pseudo:
+                rect = P.gen_prototype_retrify(
+                    out_t.mask_before.float(), out_t.x_feature.float(), mc,
+                    mcfg.pseudo_threshold, mcfg.std_threshold)
+                trg = rect.prototypes
+            else:
+                trg = P.gen_prototype(torch.sigmoid(out_t.mask_before.float()),
+                                      out_t.x_feature.float())
             if mcfg.use_global:
                 d = mcfg.global_pro_weight
                 src = _ema_bank(state.proto_src, state.proto_src_init, src, d)
@@ -166,6 +242,34 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             loss = loss + mcfg.pro_weight * intra
             metrics["loss_intra"] = intra
             metrics["loss_inter"] = P.inter_domain_loss(src)
+            if use_mt_losses and mcfg.src_reg:
+                # the grad-carrying EMA centroids, as the reference's loss reads them
+                src_reg = P.source_discriminative_loss(x_feat_s, pred_s, src)
+                loss = loss + mcfg.src_reg_weight * src_reg
+                metrics["loss_src_reg"] = src_reg
+
+        if use_cons:
+            # augmented consistency on target (steps.py:881-926): pseudo-labels
+            # from the plain target logits at the ramped threshold, weighted by
+            # the MC-std confidence masks nearest-upsampled to the image
+            pseudo = (torch.sigmoid(o_t.detach()) > consistency_threshold(epoch)).float()
+            conf = nhwc(resize_nearest(nchw(rect.conf_mask.detach()), hw))
+            draws = augment_draws(stream_seed(step_seed, _AUG_DRAWS), b, image_t.device)
+            x_aug = strong_augment(image_t.float(), draws).to(dt)
+            aug_stream = layers_lib.DropoutStream(g, stream_seed(step_seed, _AUG_FORWARD))
+            with frozen_stats(gen), torch.set_grad_enabled(mcfg.aug_backward):
+                o_aug = gen(x_aug, True, 1, aug_stream).mask_logits.float()
+            per_px = L.bce_sigmoid_stable_elementwise(o_aug, pseudo)
+            loss_aug = mcfg.aug_weight * torch.sum(per_px * conf) / torch.sum(conf)
+            if mcfg.aug_backward:
+                loss = loss + loss_aug
+            metrics["loss_aug"] = loss_aug
+
+        if use_teacher:
+            w = batch.get("consistency_weight", mcfg.consistency)
+            cons = L.mse(torch.sigmoid(o_t), torch.sigmoid(teacher_out.mask_logits.float()))
+            loss = loss + w * cons
+            metrics["loss_consistency"] = cons
 
         # ---- generator update (only G's parameters take gradients) ----
         optim_lib.set_lr(state.gen_opt, lr_gen)
@@ -176,12 +280,16 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
         metrics["loss_all"] = loss
 
         # ---- discriminator updates on the detached S/T outputs ----
-        sig_bs = torch.sigmoid(out_s.boundary_logits.detach().float()).to(dt)
-        sig_bt = torch.sigmoid(bd_t.detach()).to(dt)
-        ent_s = L.entropy_map(out_s.mask_logits.detach().float()).to(dt)
-        ent_t = L.entropy_map(o_t.detach()).to(dt)
-        for name, dis, opt, x_s, x_t in (("loss_D", state.dis, state.dis_opt, sig_bs, sig_bt),
-                                         ("loss_D2", state.dis2, state.dis2_opt, ent_s, ent_t)):
+        games = []
+        if use_boundary_d:
+            games.append(("loss_D", state.dis, state.dis_opt,
+                          torch.sigmoid(out_s.boundary_logits.detach().float()).to(dt),
+                          torch.sigmoid(bd_t.detach()).to(dt)))
+        if use_entropy_d:
+            games.append(("loss_D2", state.dis2, state.dis2_opt,
+                          L.entropy_map(out_s.mask_logits.detach().float()).to(dt),
+                          L.entropy_map(o_t.detach()).to(dt)))
+        for name, dis, opt, x_s, x_t in games:
             optim_lib.set_lr(opt, lr_dis)
             opt.zero_grad(set_to_none=True)
             loss_d = _dis_loss(dis, x_s, x_t)
@@ -190,11 +298,19 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             metrics[name] = loss_d
 
         # ---- prototype bank commit ----
-        if proto_phase:
+        if use_proto:
             state.proto_src = src.stack().detach()
             state.proto_trg = trg.stack().detach()
             state.proto_src_init = torch.ones_like(state.proto_src_init)
             state.proto_trg_init = torch.ones_like(state.proto_trg_init)
+
+        # ---- teacher EMA after the student step; stats track the student's ----
+        if use_teacher:
+            alpha = min(1.0 - 1.0 / (state.step + 1.0), mcfg.ema_decay)
+            optim_lib.weight_ema(state.teacher, gen, alpha)
+            with torch.no_grad():
+                for t_buf, s_buf in zip(state.teacher.buffers(), gen.buffers()):
+                    t_buf.copy_(s_buf)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
