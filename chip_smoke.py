@@ -11,7 +11,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dropout) the library call ``F.dropout``:
    K1, the MC mask head over three row views (M = 64*128*128 rows, bf16 and
    float32, rate 0 and 0.1); K2, the two-input mask head at the same M, also
-   against K1 on the same rows; K3, the fused dropout, forward and backward
+   against K1 on the same rows; each timed alone (coefficients computed
+   once) and through its wrapper, with its achieved bandwidth, share of the
+   byte bound, shared memory per block and blocks per SM; K3, the fused dropout, forward and backward
    (channels_last input, NCHW-contiguous gradient) at the four dropout
    sites of the S||T forward at 512^2, B 8+8, in bf16, and at one float32
    shape;
@@ -164,20 +166,27 @@ def kernel_phase(torch, mh, batch_moments, kernel_seed):
         itemsize = x_up.element_size()
         bytes_moved = m * 305 * itemsize + m * 2 * itemsize
         bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        for kname, fn, plain in (
-                ("K1", lambda: mh.fused_mask_head_split(*args, seed=seed, rate=0.1),
+        coef = mh.coefficients(mean, var, *tail, dtype)  # once, for the kernel-alone times
+        for kname, views, fn, plain in (
+                ("K1", (x_up, ll, bnd), lambda: mh.fused_mask_head_split(*args, seed=seed, rate=0.1),
                  lambda: mh.mask_head_plain(*args, seed=seed, rate=0.1)),
-                ("K2", lambda: mh.fused_mask_head(*args_bu, seed=seed, rate=0.1),
+                ("K2", (x_bu, bnd), lambda: mh.fused_mask_head(*args_bu, seed=seed, rate=0.1),
                  lambda: mh.mask_head_bu_plain(*args_bu, seed=seed, rate=0.1))):
-            ms = cuda_ms(fn, KERNEL_WINDOWS, KERNEL_PER_WINDOW)
+            ms = cuda_ms(lambda: mh.launch(views, coef, seed, 0.1), KERNEL_WINDOWS,
+                         KERNEL_PER_WINDOW)
+            wrapper_ms = cuda_ms(fn, KERNEL_WINDOWS, KERNEL_PER_WINDOW)
             plain_ms = cuda_ms(plain, PLAIN_WINDOWS, 1)
-            say(f"{kname} {dname} rate 0.1: {ms:.4f} ms per launch (median of {KERNEL_WINDOWS} "
-                f"windows of {KERNEL_PER_WINDOW}), plain {plain_ms:.3f} ms, byte bound "
-                f"{bound_ms:.4f} ms ({bytes_moved / 1e6:.1f} MB)")
+            smem, per_sm = mh.occupancy(kname == "K1", 0.1, dtype, "cuda")
+            say(f"{kname} {dname} rate 0.1: kernel alone {ms:.4f} ms per launch (median of "
+                f"{KERNEL_WINDOWS} windows of {KERNEL_PER_WINDOW}), {bytes_moved / ms / 1e6:.1f} "
+                f"GB/s, {bound_ms / ms:.3f} of the byte bound {bound_ms:.4f} ms "
+                f"({bytes_moved / 1e6:.1f} MB); wrapper with its coefficients {wrapper_ms:.4f} ms; "
+                f"plain {plain_ms:.3f} ms; {smem} B dynamic shared memory per block, "
+                f"{per_sm} blocks per SM")
             if dtype == torch.bfloat16:
                 result[kname] = dict(max_abs_err=err if kname == "K1" else err_bu, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms)
-        del x_up, ll, bnd, x_bu, args, args_bu, got, got_bu, want
+        del x_up, ll, bnd, x_bu, args, args_bu, got, got_bu, want, coef
     torch.cuda.empty_cache()
     return result
 

@@ -152,6 +152,21 @@ def test_philox_keep_rate_and_determinism():
     assert mh.keep_threshold(0.0) == 2**32
 
 
+def test_philox_bits_chunks_off_a_group_boundary():
+    """Chunks of 999 rows start at element 999*305*k, which is 3 (mod 4)
+    for k = 1: the chunk's first word is the last of a Philox group. The
+    stream still depends on the element index only, as the kernel's tile
+    draw (whole groups from 305*r0 on) assumes."""
+    m, seed = 2500, kernel_seed(4, 2)
+    assert (999 * 305) % 4 == 3
+    chunked = mh.philox_bits(m, seed, "cpu", rows_per_chunk=999)
+    assert torch.equal(chunked, mh.philox_bits(m, seed, "cpu"))
+    # element e is word e & 3 of group e >> 2
+    e = 999 * 305
+    words = mh.philox4x32_10(torch.tensor([e >> 2]), torch.zeros(1, dtype=torch.int64), seed)
+    assert int(chunked.view(-1)[e]) == int(words[e & 3])
+
+
 def test_plain_dropout_follows_bits():
     """At rate 0.1 the plain version drops exactly the elements whose draw is
     at or above the threshold (checked through a unit-weight channel)."""

@@ -24,7 +24,8 @@ P, I64, U64, U32, F32, INT = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulong
 
 
 class KernelLibrary:
-    """One ``csrc/<name>.cu``; ``signatures`` maps each ``extern "C"``
+    """One ``csrc/<name>.cu`` (or a source at another path, which finds
+    the headers of ``csrc/`` too); ``signatures`` maps each ``extern "C"``
     entry to its ctypes argument types (every entry returns an int, the
     CUDA error of its launch)."""
 
@@ -36,7 +37,8 @@ class KernelLibrary:
 
     def so_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):
+        # the headers beside the source come first on nvcc's include path
+        for header in sorted({*self.source.parent.glob("*.cuh"), *CSRC.glob("*.cuh")}):
             h.update(header.read_bytes())
         return BUILD_DIR / f"libuda_{self.source.stem}_{h.hexdigest()[:16]}.so"
 
@@ -51,7 +53,8 @@ class KernelLibrary:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         return subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(self.source)],
+             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC), "-o", str(tmp),
+             str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish(self, proc) -> None:

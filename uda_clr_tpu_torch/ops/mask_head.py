@@ -16,11 +16,16 @@ same rounding points (kept elements scale by 1/keep rounded to the input
 dtype, as the TPU kernel does) and the same Philox4x32-10 dropout stream,
 so the two agree elementwise at any rate.
 
-The kernel's least time is set by bytes: it reads each input once (~640 MB
-at the flagship shape in bf16, ~0.19 ms on an H100) and writes [M, 2]. This
-first version runs well above that, held back by the integer work of its
-Philox draws (same time in float32 as in bf16); see the source for its
-design and PERF.md for its times.
+The kernel's least time is set by bytes: it reads each input once (~644 MB
+at the flagship shape in bf16, 0.19 ms on an H100; f32 0.38 ms) and writes
+[M, 2]. Next comes the integer work of the draws, 80 M Philox evaluations
+at that shape (~0.1-0.2 ms by instruction count; their wide multiplies
+make it ~0.32 ms measured, which is what holds the bf16 kernel at ~0.40
+ms). The kernel walks row tiles that start on a Philox group: draw warps
+evaluate each group once into a shared-memory keep mask while bulk copies
+stage the tiles ahead and compute warps work in packed bf16 (see the
+source; PERF.md for its times). Every input view must be 16-byte aligned,
+``boundary`` included.
 Built with ``nvcc`` for sm_90a into ``build/kernels/`` at first use and
 bound through plain C entry points with ctypes (ops/cuda_build.py).
 """
@@ -41,10 +46,12 @@ from uda_clr_tpu_torch.ops.philox import (  # noqa: F401  (re-exported for calle
 
 C_X, C_L, C_ALL = 256, 48, 305
 
-LIBRARY = cuda_build.KernelLibrary("mask_head.cu", {
+SIGNATURES = {
     "uda_mask_head_split": [P] * 5 + [I64, U64, U32, F32, INT, INT, INT, P],
     "uda_mask_head": [P] * 4 + [I64, U64, U32, F32, INT, INT, INT, P],
-})
+}
+LIBRARY = cuda_build.KernelLibrary("mask_head.cu", {
+    **SIGNATURES, "uda_mask_head_occupancy": [INT, INT, INT, INT, P, P]})
 
 # Launches of each CUDA entry; a run can show the main path went through it.
 LAUNCHES = 0  # K1, fused_mask_head_split
@@ -62,7 +69,7 @@ def philox_bits(m: int, seed: int, device, rows_per_chunk: int = 1 << 15) -> tor
     return out
 
 
-def _coefficients(mean, var, scale, bias, w, w_bias, dt, eps):
+def coefficients(mean, var, scale, bias, w, w_bias, dt, eps: float = 1e-5):
     """float32 [5*305+2]: mu | a | beta | W[:,0] | W[:,1] | bias, the first
     five rounded to the input dtype (mask_head.py:195-200)."""
     a = torch.rsqrt(var.float() + eps) * scale.float()
@@ -79,7 +86,7 @@ def mask_head_plain(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
     with float32 sums. ``w`` is the conv weight [2, 305, 1, 1] (OIHW)."""
     dt = x_up.dtype
     lead = x_up.shape[:-1]
-    coef = _coefficients(mean, var, scale, bias, w, w_bias, dt, eps)
+    coef = coefficients(mean, var, scale, bias, w, w_bias, dt, eps)
     mu, a, beta, w0, w1 = (coef[i * C_ALL:(i + 1) * C_ALL] for i in range(5))
     xf = torch.cat([x_up, ll, boundary], dim=-1).reshape(-1, C_ALL)
     h = torch.relu((xf - mu.to(dt)) * a.to(dt) + beta.to(dt))
@@ -116,25 +123,48 @@ def _check_cuda_inputs(parts):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous row-major [..., {c}] "
                              "(a channels_last NCHW tensor's NHWC view)")
-        if c > 1 and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel stages it with "
+                             "bulk copies)")
 
 
-def _launch(entry: str, tensors, coef_args, seed: int, rate: float, eps: float):
-    """Launch ``entry`` on the row views ``tensors`` (boundary last);
-    returns [..., 2] in their dtype."""
+def launch(tensors, coef: torch.Tensor, seed: int, rate: float, library=None) -> torch.Tensor:
+    """One launch of the kernel on the CUDA row views ``tensors`` (x_up,
+    ll, boundary for K1; x_bu, boundary for K2) with the float32
+    :func:`coefficients` ``coef`` already on their card; returns [..., 2]
+    in their dtype. Uncounted: the wrappers count theirs. ``library``: a
+    :class:`cuda_build.KernelLibrary` with the same entries (default
+    :data:`LIBRARY`)."""
     first = tensors[0]
     dt = first.dtype
-    threshold = keep_threshold(rate)
-    fn = getattr(LIBRARY.load(), entry)
-    coef = _coefficients(*coef_args, dt, eps).to(first.device)
+    entry = "uda_mask_head_split" if len(tensors) == 3 else "uda_mask_head"
+    fn = getattr((library or LIBRARY).load(), entry)
     out = torch.empty(first.shape[:-1] + (2,), dtype=dt, device=first.device)
     err = fn(*(t.data_ptr() for t in tensors), coef.data_ptr(), out.data_ptr(),
-             out.numel() // 2, seed & 0xFFFFFFFFFFFFFFFF, min(threshold, MASK32),
+             out.numel() // 2, seed & 0xFFFFFFFFFFFFFFFF, min(keep_threshold(rate), MASK32),
              inv_keep(rate, dt) if rate else 1.0, int(rate > 0.0), int(dt == torch.bfloat16),
              first.device.index, cuda_build.stream_of(first))
     cuda_build.check_launch(err, "mask-head")
     return out
+
+
+def occupancy(split: bool, rate: float, dtype: torch.dtype, device) -> tuple[int, int]:
+    """(dynamic shared memory per block in bytes, resident blocks per SM)
+    of the kernel instance that a launch with these arguments runs."""
+    import ctypes
+
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    err = LIBRARY.load().uda_mask_head_occupancy(
+        int(split), int(rate > 0.0), int(dtype == torch.bfloat16), torch.device(device).index or 0,
+        ctypes.addressof(smem), ctypes.addressof(blocks))
+    cuda_build.check_launch(err, "mask-head occupancy query")
+    return smem.value, blocks.value
+
+
+def _launch(tensors, coef_args, seed: int, rate: float, eps: float):
+    first = tensors[0]
+    coef = coefficients(*coef_args, first.dtype, eps).to(first.device)
+    return launch(tensors, coef, seed, rate)
 
 
 def fused_mask_head_split(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
@@ -148,8 +178,7 @@ def fused_mask_head_split(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
                                seed, rate, eps)
     global LAUNCHES
     _check_cuda_inputs(((x_up, C_X, "x_up"), (ll, C_L, "ll"), (boundary, 1, "boundary")))
-    out = _launch("uda_mask_head_split", (x_up, ll, boundary),
-                  (mean, var, scale, bias, w, w_bias), seed, rate, eps)
+    out = _launch((x_up, ll, boundary), (mean, var, scale, bias, w, w_bias), seed, rate, eps)
     LAUNCHES += 1
     return out
 
@@ -164,7 +193,6 @@ def fused_mask_head(x_bu, boundary, mean, var, scale, bias, w, w_bias,
                                   seed, rate, eps)
     global LAUNCHES_BU
     _check_cuda_inputs(((x_bu, C_X + C_L, "x_bu"), (boundary, 1, "boundary")))
-    out = _launch("uda_mask_head", (x_bu, boundary), (mean, var, scale, bias, w, w_bias),
-                  seed, rate, eps)
+    out = _launch((x_bu, boundary), (mean, var, scale, bias, w, w_bias), seed, rate, eps)
     LAUNCHES_BU += 1
     return out

@@ -28,7 +28,7 @@ from uda_clr_tpu_torch.train.steps import make_train_step
 
 # operator-name fragments -> family, first match wins
 FAMILIES = (
-    ("mask-head kernel", ("mask_head_split",)),
+    ("mask-head kernel", ("mask_head_kernel",)),
     ("dropout kernel", ("dropout_kernel",)),
     ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit_gemm", "winograd")),
     ("matmul", ("gemm", "mm", "addmm")),
