@@ -31,7 +31,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    prototype-phase steps, asserting K1 and K3's launches per step;
 6. runs ``baseline``, ``adversarial``, ``posal`` and ``mean_teacher`` for
    two full-width steps each under the default dropout backend;
-7. prints a ``kernels`` JSON line, the card's name and power limit, and as
+7. decodes each wire key's 256 uint8 values on the card and requires them
+   bitwise equal to numpy's decode;
+8. trains through the port's CLI in process (``uda_clr_tpu_torch.cli.main``):
+   the flagship ``prototype_full`` at full width on synthetic data, uint8
+   wire, 16 images (2 steps per epoch), warmup 0, validation every epoch,
+   3 epochs, then ``--resume`` from that run's checkpoints to epoch 4;
+   ``checkpoint_every`` is 1 (through ``--config``, the CLI's route for it)
+   so the resume starts after the last epoch. It checks finite losses, the
+   12-column ``log.csv`` with a row per step and per validation, the
+   checkpoint, the resumed epoch and iteration, and one K1 launch per
+   prototype-phase step (4, then 2), and prints each epoch's wall time,
+   img/s, peak memory and the host time blocked on the loaders per step;
+9. prints a ``kernels`` JSON line, the card's name and power limit, and as
    its last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result line, when there is no CUDA card, when
@@ -42,11 +54,15 @@ comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 
 from __future__ import annotations
 
+import csv
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 MAIN_SHAPE = (64, 128, 128)  # T*B rows of the MC pass at 512^2, B=8, T=8
@@ -63,6 +79,11 @@ PROTO_STEPS = 5
 # forward, one backward launch per site the loss reaches (all 4), and the
 # augmented forward of prototype_mt (no backward with aug_backward off)
 K3_SITES_PER_FORWARD = 4
+# the Trainer phase: the CLI's flags for the flagship at full width
+TRAINER_FLAGS = ["--synthetic", "--image-size", "512", "--batch-size", "8", "--bf16",
+                 "--wire", "u8", "--warmup-epoch", "0", "--interval-validate", "1"]
+WIRE_KEYS = ("image", "image_s", "image_t", "map", "map_s", "map_t",
+             "boundary", "boundary_s", "boundary_t")
 
 
 def fail(msg: str) -> None:
@@ -379,7 +400,7 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict):
         f"peak memory {peak_gib:.2f} GiB, launches {launches}")
     del state, batch
     torch.cuda.empty_cache()
-    return launches
+    return launches, med
 
 
 def other_methods_phase(torch, np, ports, mh, K3):
@@ -413,6 +434,108 @@ def other_methods_phase(torch, np, ports, mh, K3):
     torch.cuda.empty_cache()
 
 
+def wire_phase(torch, np, wire):
+    """Each wire key's 256 uint8 values decoded on the card, bitwise against
+    numpy's decode (a divide by a float32 tensor on the card, not a
+    multiply by the reciprocal)."""
+    u = np.arange(256, dtype=np.uint8)
+    for key in WIRE_KEYS:
+        got = wire.decode_batch({key: torch.from_numpy(u).cuda()})[key]
+        want = wire.decode_array(key, u)
+        if got.dtype != torch.float32 or not np.array_equal(
+                got.cpu().numpy().view(np.uint32), want.view(np.uint32)):
+            fail(f"wire decode of {key!r} on the card differs from numpy's")
+    say(f"wire: the decode of all 256 uint8 values equals numpy's bitwise on the card "
+        f"for {len(WIRE_KEYS)} keys")
+
+
+def check_run(trainer, out: str, headers, first_iteration: int, epochs: list, where: str):
+    """log.csv of a CLI run: the 12-column header, one finite row per step
+    (consecutive iterations from ``first_iteration``) and per validation."""
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != headers or len(headers) != 12:
+        fail(f"{where}: log.csv header {rows[0]}")
+    train = [r for r in rows[1:] if r[2]]
+    valid = [r for r in rows[1:] if not r[2]]
+    steps = sum(s["steps"] for s in trainer.epoch_stats)
+    if [int(r[1]) for r in train] != list(range(first_iteration, first_iteration + steps)):
+        fail(f"{where}: train rows at iterations {[r[1] for r in train]}")
+    if [int(r[0]) for r in valid] != epochs or [s["epoch"] for s in trainer.epoch_stats] != epochs:
+        fail(f"{where}: validation rows for epochs {[r[0] for r in valid]}, want {epochs}")
+    for r in train:
+        if len(r) != 12 or not all(math.isfinite(float(r[i])) for i in (2, 5, 6, 7)):
+            fail(f"{where}: train row {r} is not finite")
+    for r in valid:
+        if len(r) != 13 or not all(math.isfinite(float(r[i])) for i in (8, 9, 10)):
+            fail(f"{where}: validation row {r} is not finite")
+
+
+def trainer_phase(torch, trainer_ports, mh, K3, direct_ms: float) -> None:
+    """The flagship through the port's CLI: 3 epochs, then a resume to 4."""
+    cli, ckpt_lib, headers = trainer_ports
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        def run(name, max_epoch, *extra):
+            cfg = cli.build_config(TRAINER_FLAGS + ["--max-epoch", str(max_epoch)])
+            cfg.run.checkpoint_every = 1  # every validation writes a checkpoint
+            path = os.path.join(tmp, name + ".yaml")
+            with open(path, "w") as f:
+                f.write(cfg.to_yaml())
+            out = os.path.join(tmp, name)
+            reset_counts(mh, K3)
+            t0 = time.perf_counter()
+            trainer = cli.main(["--config", path, "--out", out, *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = counts(mh, K3)
+            proto_steps = sum(s["steps"] for s in trainer.epoch_stats if s["proto_phase"])
+            for s in trainer.epoch_stats:
+                phase = "prototype phase" if s["proto_phase"] else "warmup"
+                rest = (s["seconds"] - s["loader_wait_s"]) / s["steps"]
+                say(f"trainer {name} epoch {s['epoch']} ({phase}): wall {s['seconds']:.3f} s for "
+                    f"{s['steps']} steps, {s['img_per_s']:.2f} img/s, peak memory "
+                    f"{s['peak_gib']:.2f} GiB, loader wait {1e3 * s['loader_wait_s'] / s['steps']:.1f} "
+                    f"ms/step, the rest {1e3 * rest:.1f} ms/step")
+            say(f"trainer {name}: {seconds:.1f} s in cli.main (datasets, model, training, "
+                f"validation, checkpoints); launches {launches}")
+            want = {k: 0 for k in launches}
+            want["k1"] = proto_steps
+            if launches != want:
+                fail(f"trainer {name}: kernel launches {launches}, expected {want} "
+                     f"(one K1 launch per prototype-phase step)")
+            return trainer, out, launches
+
+        first, out1, c1 = run("first", 3)
+        check_run(first, out1, headers, 0, [0, 1, 2], "trainer first")
+        if c1["k1"] != 4:
+            fail(f"trainer first: {c1['k1']} K1 launches, expected 4")
+        ckpt_dir = os.path.join(out1, "checkpoints")
+        tag = ckpt_lib.latest_checkpoint(ckpt_dir)
+        if tag != "checkpoint_3" or first.iteration != 5:
+            fail(f"trainer first: latest checkpoint {tag}, iteration {first.iteration}")
+        size_mb = os.path.getsize(os.path.join(ckpt_dir, tag + ".pth.tar")) / 1e6
+        say(f"trainer first: wrote {tag}.pth.tar ({size_mb:.1f} MB), iteration {first.iteration}")
+
+        second, out2, c2 = run("resumed", 4, "--resume", ckpt_dir)
+        check_run(second, out2, headers, first.iteration + 1, [3], "trainer resumed")
+        if c2["k1"] != 2 or second.iteration != 7:
+            fail(f"trainer resumed: {c2['k1']} K1 launches, iteration {second.iteration}")
+        say(f"trainer resumed: started at epoch 3, iteration {first.iteration + 1}, "
+            f"as the checkpoint implies")
+        steady = [s for s in first.epoch_stats + second.epoch_stats
+                  if s["proto_phase"] and s["epoch"] > 1]
+        wall = statistics.mean(s["seconds"] / s["steps"] for s in steady)
+        wait = statistics.mean(s["loader_wait_s"] / s["steps"] for s in steady)
+        say(f"trainer prototype-phase epochs 2-3: wall {1e3 * wall:.1f} ms/step, loader wait "
+            f"{1e3 * wait:.1f} ms/step, the rest {1e3 * (wall - wait):.1f} ms/step; the direct "
+            f"flagship step's median in this run {direct_ms:.2f} ms")
+        del first, second
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def check_counts(mh, K3, expect: dict, where: str) -> None:
     got = counts(mh, K3)
     if got != expect:
@@ -438,14 +561,18 @@ def main() -> None:
         import numpy as np
         import torch.nn.functional as F
 
+        from uda_clr_tpu_torch import cli
         from uda_clr_tpu_torch.config import Config
+        from uda_clr_tpu_torch.data import wire
         from uda_clr_tpu_torch.models import layers
         from uda_clr_tpu_torch.models.norm import batch_moments
         from uda_clr_tpu_torch.ops import cuda_build
         from uda_clr_tpu_torch.ops import dropout as K3
         from uda_clr_tpu_torch.ops import mask_head as mh
+        from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
         from uda_clr_tpu_torch.train.state import create_train_state
         from uda_clr_tpu_torch.train.steps import kernel_seed, make_train_step
+        from uda_clr_tpu_torch.utils.logging import LOG_HEADERS
     except ImportError as e:
         fail(f"the port's package is not importable from here ({e}); run from the repo root")
     torch.backends.cudnn.allow_tf32 = False
@@ -470,18 +597,20 @@ def main() -> None:
     small_parity_phase(torch, np, ports)
 
     # the flagship path: K1 once per prototype-phase step, no K3 under 'xla16'
-    flagship = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
+    flagship, flagship_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
         "warmup": {}, "proto": {"k1": 1}})
     # the paper's full method under the fused dropout kernel
     sites = K3_SITES_PER_FORWARD
     layers.set_dropout_impl("pallas")
     try:
-        mt = prototype_path(torch, np, ports, mh, K3, "prototype_mt", {
+        mt, _ = prototype_path(torch, np, ports, mh, K3, "prototype_mt", {
             "warmup": {"k3_fwd": sites, "k3_bwd": sites},
             "proto": {"k1": 1, "k3_fwd": 2 * sites, "k3_bwd": sites}})
     finally:
         layers.set_dropout_impl("xla16")
     other_methods_phase(torch, np, ports, mh, K3)
+    wire_phase(torch, np, wire)
+    trainer_phase(torch, (cli, ckpt_lib, LOG_HEADERS), mh, K3, flagship_ms)
 
     def row(name, source, replaces, launches, nums, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,7 +1,10 @@
 """The port stands alone: importing uda_clr_tpu_torch and every one of its
 modules, or running chip_smoke.py's imports, loads neither JAX nor any
-module of the JAX package. Checked in a fresh interpreter, since this test
-process has both loaded."""
+module of the JAX package, and needs none of Pillow, PyYAML, cv2, orbax or
+tensorboard, which a CUDA machine may lack: a fresh interpreter that
+refuses to import those imports every port module and chip_smoke.py, runs
+one ``train_transforms(64, wire="u8")`` sample and ``build_config([])``.
+Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
 import subprocess
@@ -14,6 +17,18 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
 import importlib, pkgutil, sys
+
+BLOCKED = ('PIL', 'yaml', 'cv2', 'orbax', 'tensorboard')
+
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ImportError(f'{name} is blocked: the port must run without it')
+
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
 import uda_clr_tpu_torch
 names = ['uda_clr_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
     uda_clr_tpu_torch.__path__, 'uda_clr_tpu_torch.')]
@@ -21,10 +36,18 @@ for name in names:
     importlib.import_module(name)
 import runpy
 runpy.run_path('chip_smoke.py', run_name='chip_smoke')
+from uda_clr_tpu_torch.cli import build_config
+from uda_clr_tpu_torch.data.synthetic import SyntheticFundus
+from uda_clr_tpu_torch.data.transforms import train_transforms
+sample = SyntheticFundus(1, 92, transform=train_transforms(64, wire='u8')).get(
+    0, np.random.default_rng(0))
+assert sample['image'].shape == (64, 64, 3) and sample['image'].dtype == np.uint8
+assert build_config([]).run.max_epoch == 500
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.')
              or m == 'flax' or m.startswith('flax.')
-             or m == 'uda_clr_tpu' or m.startswith('uda_clr_tpu.'))
+             or m == 'uda_clr_tpu' or m.startswith('uda_clr_tpu.')
+             or m.split('.')[0] in BLOCKED)
 print(len(names))
 print(' '.join(bad))
 """
@@ -36,18 +59,20 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + ["", ""])[:2]
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 15
+    assert int(count) == len(modules) + 1 >= 43
     assert bad == "", f"the port loaded: {bad}"
 
 
 def test_port_sources_name_no_jax():
-    """No source line of the port or of chip_smoke.py imports JAX or the
-    JAX package (exact names: uda_clr_tpu_torch shares the prefix)."""
+    """No source line of the port or of chip_smoke.py imports JAX, the JAX
+    package or one of the blocked packages (exact names: uda_clr_tpu_torch
+    shares the prefix)."""
     files = sorted((ROOT / "uda_clr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0]
-                assert top not in ("jax", "jaxlib", "flax", "optax", "uda_clr_tpu"), \
+                assert top not in ("jax", "jaxlib", "flax", "optax", "uda_clr_tpu", "PIL", "yaml",
+                                   "cv2", "orbax", "tensorboard"), \
                     f"{path.relative_to(ROOT)}:{n}: {line.strip()}"

@@ -53,10 +53,14 @@ def bce_sigmoid_stable_elementwise(logits: torch.Tensor, targets: torch.Tensor) 
     return _BceSigmoidStableElementwise.apply(logits, targets)
 
 
+def bce_with_logits_elementwise(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``max(x,0) - x t + log(1 + exp(-|x|))``."""
+    return (torch.clamp(logits, min=0.0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean ``max(x,0) - x t + log(1 + exp(-|x|))``."""
-    return torch.mean(torch.clamp(logits, min=0.0) - logits * targets
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return torch.mean(bce_with_logits_elementwise(logits, targets))
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@ generator; the fused dropout kernel K3, K1 and the augmentation draw from
 64-bit Philox seeds derived on the host from (state.seed, state.step), so no
 step syncs with the device.
 
-bf16: the batch is cast to ``cfg.model.compute_dtype`` once; every conv
+A uint8 wire batch is decoded to float32 first (data/wire.py), as the JAX
+step does (steps.py:559). bf16: the batch is then cast to
+``cfg.model.compute_dtype`` once; every conv
 casts its float32 weight to the activation dtype, norms reduce in float32,
 and losses run in float32 (explicit casts, no autocast).
 """
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from uda_clr_tpu_torch.config import Config
+from uda_clr_tpu_torch.data.wire import decode_batch
 from uda_clr_tpu_torch.models import layers as layers_lib
 from uda_clr_tpu_torch.models.deeplab import DeepLab, DeepLabOutputs, nchw, nhwc
 from uda_clr_tpu_torch.models.norm import batch_moments, frozen_stats, normalize
@@ -139,8 +142,9 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     """Build ``step(state, batch, lr_gen, lr_dis, epoch=0) -> (state, metrics)``.
 
     ``batch``: image_s, map_s, boundary_s (and image_t unless the method is
-    the baseline), NHWC float32 tensors on the state's device; optionally
-    ``consistency_weight`` for the mean teacher. ``metrics`` holds detached
+    the baseline), NHWC tensors on the state's device, float32 or uint8 wire
+    (decoded first, data/wire.py); optionally ``consistency_weight`` for the
+    mean teacher. ``metrics`` holds detached
     0-d tensors (no host sync inside the step). The state's modules and
     optimizers update in place. ``proto_phase`` selects the prototype phase
     of ``prototype_full``/``prototype_mt`` (their warmup otherwise); the
@@ -166,6 +170,7 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     dt = cfg.model.dtype
 
     def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
+        batch = decode_batch(batch)  # uint8 wire batches -> float32
         gen, g = state.gen, state.generator
         step_seed = kernel_seed(state.seed, state.step)
         image_s = batch["image_s"].to(dt)
@@ -313,5 +318,25 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                     t_buf.copy_(s_buf)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_eval_step(gen: DeepLab, dtype: torch.dtype = torch.float32):
+    """Build ``step(image, map_t) -> (logits, boundary_logits, per_image)``
+    (steps.py:1053-1074): an eval-mode forward of ``gen`` without gradients,
+    float32 mask and boundary logits [B, H, W, C], and the per-image mean of
+    BCE-with-logits against ``map_t`` ([B]), so the trainer can pad a
+    partial batch and average over the real images only. uint8 wire inputs
+    are decoded first; the metrics' binarization stays on the host."""
+
+    @torch.no_grad()
+    def step(image: torch.Tensor, map_t: torch.Tensor):
+        decoded = decode_batch({"image": image, "map": map_t})
+        outs = gen(decoded["image"].to(dtype), train=False)
+        logits = outs.mask_logits.float()
+        per_image = torch.mean(L.bce_with_logits_elementwise(logits, decoded["map"]),
+                               dim=(1, 2, 3))
+        return logits, outs.boundary_logits.float(), per_image
 
     return step
