@@ -19,8 +19,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    shape;
 3. runs small train steps on the card and on the CPU from the same seed
    (float32, TF32 off, dropout off) and compares their metrics:
-   ``prototype_full`` (warmup, then a prototype-phase step) and
-   ``prototype_mt`` (a prototype-phase step, then warmup);
+   ``prototype_full`` (warmup, then a prototype-phase step) under plain BN
+   and under TransNorm, and ``prototype_mt`` (a prototype-phase step, then
+   warmup);
 4. drives the flagship ``prototype_full`` step at full width (mobilenet
    DeepLabv3+ OS16, 512x512, 8 source + 8 target images, T=8 MC samples,
    bfloat16): one warmup step, then five prototype-phase steps, checking
@@ -29,11 +30,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5. drives ``prototype_mt`` at the same width under the fused dropout kernel
    (``set_dropout_impl('pallas')``): one warmup step, then five
    prototype-phase steps, asserting K1 and K3's launches per step;
-6. runs ``baseline``, ``adversarial``, ``posal`` and ``mean_teacher`` for
+6. drives, at the same width: the flagship under TransNorm (``norm='tn'``:
+   the standalone fast MC forward, one K1 launch per prototype-phase step,
+   1 warmup + 4 prototype-phase steps); the prototype-bank tool
+   (``tools/cal_prototype.py``) on the card against the CPU at 64^2, then
+   over 16 synthetic 512^2 target images, whose bank seeds the disk-bank
+   paths; the disk-bank method ``prototype`` under TransNorm and the
+   fused dropout kernel (1 warmup + 4 prototype-phase steps, K3 at the four
+   sites forward and backward, no K1, a bank that moves every step); the
+   flagship with the repeated-batch MC pass (``mc_fast=False``) under the
+   fused dropout kernel (no K1; 4 + 16 forward and 4 backward K3 launches
+   per prototype-phase step); and 2 prototype-phase steps of the bank
+   method's woTN configuration (plain BN, no bu term, distance-weighted
+   pseudo-labels from a frozen initial model); then prints each new path's
+   median step beside the flagship's;
+7. runs ``baseline``, ``adversarial``, ``posal`` and ``mean_teacher`` for
    two full-width steps each under the default dropout backend;
-7. decodes each wire key's 256 uint8 values on the card and requires them
+8. decodes each wire key's 256 uint8 values on the card and requires them
    bitwise equal to numpy's decode;
-8. trains through the port's CLI in process (``uda_clr_tpu_torch.cli.main``):
+9. trains through the port's CLI in process (``uda_clr_tpu_torch.cli.main``):
    the flagship ``prototype_full`` at full width on synthetic data, uint8
    wire, 16 images (2 steps per epoch), warmup 0, validation every epoch,
    3 epochs, then ``--resume`` from that run's checkpoints to epoch 4;
@@ -43,8 +58,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    checkpoint, the resumed epoch and iteration, and one K1 launch per
    prototype-phase step (4, then 2), and prints each epoch's wall time,
    img/s, peak memory and the host time blocked on the loaders per step;
-9. prints a ``kernels`` JSON line, the card's name and power limit, and as
-   its last line ``{"ok": true, "device": {...}}``.
+10. trains ``--method prototype --use_TN`` through the CLI's configuration
+   at the same width with the bank of ``python -m
+   uda_clr_tpu_torch.tools.cal_prototype --synthetic --use_TN`` (in
+   process): 2 epochs with warmup 0, then ``--resume`` for a third, which
+   must start at the checkpoint's next epoch and iteration with the saved
+   bank and generator (TransNorm buffers included);
+11. prints a ``kernels`` JSON line (each kernel's launches summed over every
+   path driven above), the card's name and power limit, and as its last
+   line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, with no result line, when there is no CUDA card, when
 the port's package is not beside it, or when any phase fails. float32
@@ -289,15 +311,21 @@ def small_parity_phase(torch, np, ports):
     (plain versions), same seed, dropout off, float32."""
     Config, create_train_state, make_train_step, layers = ports
     arrs = small_batch(np, np.random.default_rng(1), 2, 64)
-    cfg = Config()
-    cfg.method.mc_samples = 4
     # step 0: float32 noise of cuDNN vs CPU convolutions; step 1 inherits
     # Adam's first update, whose sign is noise where a gradient is ~0.
     # loss_aug counts pixels through two hard thresholds (pseudo-label and
-    # MC-std confidence), which that noise may flip.
-    runs = (("prototype_full", (False, True), {}),
-            ("prototype_mt", (True, False), {"loss_aug": 5e-2}))
-    for method, phases, loose in runs:
+    # MC-std confidence), which that noise may flip. The TransNorm step runs
+    # the standalone fast MC forward (K1 with doubled coefficients) first:
+    # after an Adam step its loss_intra moved 4% on the CPU alone for a 1e-6
+    # relative change of the inputs (pixels cross the 0.75 pseudo-label
+    # threshold), before one by 7e-5.
+    runs = (("prototype_full", (False, True), {}, "bn"),
+            ("prototype_mt", (True, False), {"loss_aug": 5e-2}, "bn"),
+            ("prototype_full", (True, False), {}, "tn"))
+    for method, phases, loose, norm in runs:
+        cfg = Config()
+        cfg.method.mc_samples = 4
+        cfg.model.norm = norm
         losses = {}
         layers.set_dropout_impl("off")
         try:
@@ -316,10 +344,11 @@ def small_parity_phase(torch, np, ports):
                 got = losses["cuda"][i][k]
                 tol = max(rtol, loose.get(k, 0.0))
                 rel = abs(got - want) / max(abs(want), 1e-12)
-                say(f"small {method} step {i} {k}: card {got:.6g} cpu {want:.6g} rel {rel:.2e} "
-                    f"(tolerance {tol:g})")
+                say(f"small {method} ({norm}) step {i} {k}: card {got:.6g} cpu {want:.6g} "
+                    f"rel {rel:.2e} (tolerance {tol:g})")
                 if not rel <= tol:
-                    fail(f"small {method} step {i}: {k} disagrees between the card and the CPU")
+                    fail(f"small {method} ({norm}) step {i}: {k} disagrees between the card "
+                         f"and the CPU")
 
 
 def full_width_batch(torch, np):
@@ -344,16 +373,25 @@ def counts(mh, K3):
     return dict(k1=mh.LAUNCHES, k2=mh.LAUNCHES_BU, k3_fwd=K3.LAUNCHES_FWD, k3_bwd=K3.LAUNCHES_BWD)
 
 
-def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict):
-    """1 warmup + PROTO_STEPS prototype-phase steps of ``method`` at full
-    width; the counts are set to 0 just before and checked after every step
-    against ``per_step`` (launches per warmup / prototype-phase step).
-    Returns the path's launch counts."""
+def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: str = "",
+                   steps: int = PROTO_STEPS, warmup: bool = True, configure=None,
+                   proto_bank=None, keys=None, banks_move: bool = True):
+    """1 warmup (unless ``warmup`` is False) + ``steps`` prototype-phase
+    steps of ``method`` at full width (``configure(cfg)`` edits the
+    configuration; ``proto_bank`` seeds the disk bank of ``prototype``);
+    the counts are set to 0 just before and checked after every step
+    against ``per_step`` (launches per warmup / prototype-phase step), the
+    metrics' names against ``keys`` when given, and the banks must move
+    every step (unless ``banks_move`` is False: then it is only said). Returns the path's launch counts and the median step ms
+    (over steps 1 on: step 0 carries first-call costs)."""
     Config, create_train_state, make_train_step, _ = ports
+    name = name or method
     cfg = full_width_cfg(Config)
+    if configure is not None:
+        configure(cfg)
     batch = full_width_batch(torch, np)
     b = batch["image_s"].shape[0]
-    state = create_train_state(cfg, seed=0, device="cuda", method=method)
+    state = create_train_state(cfg, seed=0, device="cuda", method=method, proto_bank=proto_bank)
     warm = make_train_step(cfg, method, proto_phase=False)
     proto = make_train_step(cfg, method, proto_phase=True)
     torch.cuda.synchronize()
@@ -361,46 +399,111 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict):
 
     reset_counts(mh, K3)  # counts from here on are this path's
     expect = {k: 0 for k in counts(mh, K3)}
-    t0 = time.perf_counter()
-    state, m = warm(state, batch, 1e-3, 2.5e-5)
-    torch.cuda.synchronize()
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    check_metrics(m, f"{method} warmup")
-    for k, n in per_step["warmup"].items():
-        expect[k] += n
-    check_counts(mh, K3, expect, f"{method} warmup step")
-    say(f"{method} warmup step: {warm_ms:.1f} ms (first step), {fmt(m)}")
+    if warmup:
+        t0 = time.perf_counter()
+        state, m = warm(state, batch, 1e-3, 2.5e-5)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        check_metrics(m, f"{name} warmup")
+        for k, n in per_step["warmup"].items():
+            expect[k] += n
+        check_counts(mh, K3, expect, f"{name} warmup step")
+        say(f"{name} warmup step: {warm_ms:.1f} ms (first step), {fmt(m)}")
 
     banks, step_ms = [], []
-    for i in range(PROTO_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         state, m = proto(state, batch, 1e-3, 2.5e-5)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        check_metrics(m, f"{method} prototype step {i}")
+        check_metrics(m, f"{name} prototype step {i}")
+        if keys is not None and set(m) != keys:
+            fail(f"{name}: metrics {sorted(m)}, want {sorted(keys)}")
         for k, n in per_step["proto"].items():
             expect[k] += n
-        check_counts(mh, K3, expect, f"{method} prototype step {i}")
-        banks.append(torch.cat([state.proto_src, state.proto_trg]).clone())
-        say(f"{method} prototype step {i}: {step_ms[-1]:.1f} ms, {fmt(m)}")
+        check_counts(mh, K3, expect, f"{name} prototype step {i}")
+        if method == "prototype":
+            banks.append(torch.cat([state.proto_bank[k] for k in ("cup", "disc")]).clone())
+        else:
+            banks.append(torch.cat([state.proto_src, state.proto_trg]).clone())
+        say(f"{name} prototype step {i}: {step_ms[-1]:.1f} ms, {fmt(m)}")
     launches = counts(mh, K3)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    if not (bool(state.proto_src_init) and bool(state.proto_trg_init)):
-        fail(f"{method}: the prototype banks were never seeded")
+    if method != "prototype" and not (bool(state.proto_src_init) and bool(state.proto_trg_init)):
+        fail(f"{name}: the prototype banks were never seeded")
     for i, bank in enumerate(banks):
         if not bool(torch.isfinite(bank).all()) or float(bank.abs().max()) == 0.0:
-            fail(f"{method}: prototype bank after step {i} is zero or not finite")
+            fail(f"{name}: prototype bank after step {i} is zero or not finite")
         if i and torch.equal(bank, banks[i - 1]):
-            fail(f"{method}: prototype step {i} left the banks unchanged")
-    # the first prototype-phase step includes the MC pass's first-call costs
+            if banks_move:
+                fail(f"{name}: prototype step {i} left the banks unchanged")
+            say(f"{name}: prototype step {i} left the banks unchanged (no target pixel "
+                f"passed the thresholds)")
     med = statistics.median(step_ms[1:])
-    say(f"{method} prototype step: median {med:.2f} ms over steps 1-{PROTO_STEPS - 1}, "
+    say(f"{name} prototype step: median {med:.2f} ms over steps 1-{steps - 1}, "
         f"{b / (med / 1e3):.2f} img/s (source images per second), "
         f"peak memory {peak_gib:.2f} GiB, launches {launches}")
     del state, batch
     torch.cuda.empty_cache()
     return launches, med
+
+
+def bank_tool_phase(torch, np, bank_ports):
+    """The prototype-bank tool's ``compute_prototypes`` with a TransNorm
+    generator (seed 0) on the card: at 64^2 on 2 synthetic images against
+    the same weights on the CPU, then over 16 synthetic 512^2 target images
+    (the bank the full-width disk-bank paths start from). The generator's
+    running stats are first set from one train-mode S||T forward (momentum
+    1), as a trained generator's would be: at their init values every
+    TransNorm layer of the eval forward doubles its output, and the
+    thresholded pools flip with the float noise."""
+    compute_prototypes, DeepLab, DomainNorm2d, SyntheticFundus, eval_transforms, BatchLoader = \
+        bank_ports
+    gen = DeepLab(norm="tn", seed=0)
+
+    def batches(n, size, seed=2):
+        ds = SyntheticFundus(n, size + 28, seed=seed, transform=eval_transforms(size))
+        return BatchLoader(ds, 8, shuffle=False, drop_last=False, num_workers=2).epoch(0)
+
+    small = list(batches(2, 64))
+    norms = [m for m in gen.modules() if isinstance(m, DomainNorm2d)]
+    for m in norms:
+        m.momentum = 1.0
+    with torch.no_grad():
+        gen(torch.from_numpy(np.concatenate([list(batches(2, 64, seed=1))[0]["image"],
+                                             small[0]["image"]])), train=True, domains=2)
+    for m in norms:
+        m.momentum = 0.1
+    want = compute_prototypes(gen, small)
+    # the pools' own sensitivity: a 1e-6 relative change of the input
+    nudged = compute_prototypes(gen, [{"image": b["image"] * np.float32(1 + 1e-6)}
+                                      for b in small])
+    gen.cuda().to(memory_format=torch.channels_last)
+    got = compute_prototypes(gen, small)
+    for k, v in want.items():
+        scale = max(float(np.abs(v).max()), 1e-12)
+        err = float(np.abs(got[k] - v).max()) / scale
+        sens = float(np.abs(nudged[k] - v).max()) / scale
+        tol = max(1e-4, 10 * sens)
+        say(f"bank tool, 2 images at 64^2, {k}[{v.shape[0]}]: card vs cpu {err:.2e} of the "
+            f"largest entry; a 1e-6 relative input change moves it {sens:.2e} on the CPU "
+            f"(tolerance {tol:.2e}, ten times that)")
+        if not err <= tol:
+            fail(f"bank tool: {k} disagrees between the card and the CPU")
+    t0 = time.perf_counter()
+    bank = compute_prototypes(gen, batches(16, 512))
+    seconds = time.perf_counter() - t0
+    sizes = {"bu": 304, "cup": 305, "disc": 305}
+    for k, n in sizes.items():
+        v = bank[k]
+        if v.shape != (n,) or not np.all(np.isfinite(v)) or float(np.abs(v).max()) == 0.0:
+            fail(f"bank tool: {k} {v.shape} is zero, not finite or misshapen")
+    say(f"bank tool: 16 synthetic 512^2 images in {seconds:.2f} s (host transforms included); "
+        + ", ".join(f"{k} |max| {float(np.abs(v).max()):.4g}" for k, v in bank.items()))
+    del gen
+    torch.cuda.empty_cache()
+    return bank
 
 
 def other_methods_phase(torch, np, ports, mh, K3):
@@ -471,9 +574,10 @@ def check_run(trainer, out: str, headers, first_iteration: int, epochs: list, wh
             fail(f"{where}: validation row {r} is not finite")
 
 
-def trainer_phase(torch, trainer_ports, mh, K3, direct_ms: float) -> None:
-    """The flagship through the port's CLI: 3 epochs, then a resume to 4."""
-    cli, ckpt_lib, headers = trainer_ports
+def trainer_phase(torch, trainer_ports, mh, K3, direct_ms: float) -> dict:
+    """The flagship through the port's CLI: 3 epochs, then a resume to 4.
+    Returns the launch counts of both runs."""
+    cli, ckpt_lib, headers, _ = trainer_ports
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
         def run(name, max_epoch, *extra):
@@ -534,6 +638,89 @@ def trainer_phase(torch, trainer_ports, mh, K3, direct_ms: float) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    return {k: c1[k] + c2[k] for k in c1}
+
+
+def bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3) -> dict:
+    """``--method prototype --use_TN`` through the port's CLI at full width,
+    its bank from ``python -m uda_clr_tpu_torch.tools.cal_prototype
+    --synthetic --use_TN`` (in process): 2 epochs with warmup 0 (the second
+    in the prototype phase), then ``--resume`` for a third; the resumed run
+    must start at the checkpoint's next epoch and iteration with the bank
+    it saved. Returns the launch counts of the training runs."""
+    cli, ckpt_lib, headers, Trainer = trainer_ports
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bank_")
+    total = {k: 0 for k in counts(mh, K3)}
+    try:
+        bank_path = os.path.join(tmp, "bank.npz")
+        t0 = time.perf_counter()
+        cal_prototype.main(["--synthetic", "--use_TN", "--out", bank_path])
+        say(f"bank trainer: cal_prototype --synthetic --use_TN wrote {bank_path} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = cli.build_config(TRAINER_FLAGS + ["--max-epoch", "2", "--method", "prototype",
+                                                "--use_TN"])
+        cfg.run.checkpoint_every = 1
+        cfg.method.prototype_bank_path = bank_path
+        path = os.path.join(tmp, "bank.yaml")
+        with open(path, "w") as f:
+            f.write(cfg.to_yaml())
+
+        def run(name, *extra):
+            reset_counts(mh, K3)
+            t0 = time.perf_counter()
+            trainer = Trainer(cli.build_config(["--config", path, "--out",
+                                                os.path.join(tmp, name), *extra]), "cuda")
+            before = {k: v.clone() for k, v in trainer.state.proto_bank.items()}
+            before.update({f"gen.{k}": v.clone() for k, v in trainer.state.gen.state_dict().items()})
+            start = (trainer.epoch, trainer.iteration)
+            trainer.train()
+            torch.cuda.synchronize()
+            launches = counts(mh, K3)
+            for k in total:
+                total[k] += launches[k]
+            for s in trainer.epoch_stats:
+                phase = "prototype phase" if s["proto_phase"] else "warmup"
+                say(f"bank trainer {name} epoch {s['epoch']} ({phase}): wall {s['seconds']:.3f} s "
+                    f"for {s['steps']} steps, {s['img_per_s']:.2f} img/s, peak memory "
+                    f"{s['peak_gib']:.2f} GiB, loader wait "
+                    f"{1e3 * s['loader_wait_s'] / s['steps']:.1f} ms/step")
+            say(f"bank trainer {name}: {time.perf_counter() - t0:.1f} s; launches {launches}")
+            if any(launches.values()):  # 'xla16' dropout, no MC pass: no kernel runs
+                fail(f"bank trainer {name}: kernel launches {launches}, expected none")
+            return trainer, before, start
+
+        first, bank0, _ = run("first")
+        check_run(first, os.path.join(tmp, "first"), headers, 0, [0, 1], "bank trainer first")
+        if [s["proto_phase"] for s in first.epoch_stats] != [False, True]:
+            fail(f"bank trainer first: phases {[s['proto_phase'] for s in first.epoch_stats]}")
+        with np.load(bank_path) as f:
+            for k in ("bu", "cup", "disc"):
+                if not np.array_equal(bank0[k].cpu().numpy(), f[k]):
+                    fail(f"bank trainer first: the bank {k!r} is not the tool's")
+                if torch.equal(first.state.proto_bank[k].cpu(), bank0[k].cpu()):
+                    fail(f"bank trainer first: the prototype phase left the bank {k!r} as it was")
+        ckpt_dir = os.path.join(tmp, "first", "checkpoints")
+        cfg.run.max_epoch = 3
+        with open(path, "w") as f:
+            f.write(cfg.to_yaml())
+        second, bank1, start = run("resumed", "--resume", ckpt_dir)
+        if start != (2, first.iteration) or [s["epoch"] for s in second.epoch_stats] != [2]:
+            fail(f"bank trainer resumed: started at (epoch, iteration) {start}, expected "
+                 f"(2, {first.iteration})")
+        for k, v in first.state.proto_bank.items():
+            if not torch.equal(bank1[k], v):
+                fail(f"bank trainer resumed: the loaded bank {k!r} differs from the saved one")
+        for k, v in first.state.gen.state_dict().items():  # TransNorm buffers included
+            if not torch.equal(bank1[f"gen.{k}"], v):
+                fail(f"bank trainer resumed: the loaded generator's {k} differs from the saved one")
+        say(f"bank trainer resumed: started at epoch 2, iteration {first.iteration + 1}, "
+            f"with the saved bank and generator (TransNorm buffers included), as the "
+            f"checkpoint implies")
+        del first, second
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
 
 
 def check_counts(mh, K3, expect: dict, where: str) -> None:
@@ -564,14 +751,20 @@ def main() -> None:
         from uda_clr_tpu_torch import cli
         from uda_clr_tpu_torch.config import Config
         from uda_clr_tpu_torch.data import wire
+        from uda_clr_tpu_torch.data.pipeline import BatchLoader
+        from uda_clr_tpu_torch.data.synthetic import SyntheticFundus
+        from uda_clr_tpu_torch.data.transforms import eval_transforms
         from uda_clr_tpu_torch.models import layers
-        from uda_clr_tpu_torch.models.norm import batch_moments
+        from uda_clr_tpu_torch.models.deeplab import DeepLab
+        from uda_clr_tpu_torch.models.norm import DomainNorm2d, batch_moments
         from uda_clr_tpu_torch.ops import cuda_build
         from uda_clr_tpu_torch.ops import dropout as K3
         from uda_clr_tpu_torch.ops import mask_head as mh
+        from uda_clr_tpu_torch.tools import cal_prototype
         from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
         from uda_clr_tpu_torch.train.state import create_train_state
         from uda_clr_tpu_torch.train.steps import kernel_seed, make_train_step
+        from uda_clr_tpu_torch.train.trainer import Trainer
         from uda_clr_tpu_torch.utils.logging import LOG_HEADERS
     except ImportError as e:
         fail(f"the port's package is not importable from here ({e}); run from the repo root")
@@ -608,9 +801,55 @@ def main() -> None:
             "proto": {"k1": 1, "k3_fwd": 2 * sites, "k3_bwd": sites}})
     finally:
         layers.set_dropout_impl("xla16")
+    # TransNorm: the standalone fast MC forward (degenerate TN prefix), K1
+    # once per prototype step with doubled coefficients
+    to_tn = lambda c: setattr(c.model, "norm", "tn")
+    flagship_tn, tn_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
+        "warmup": {}, "proto": {"k1": 1}}, name="prototype_full tn", steps=4, configure=to_tn)
+    bank = bank_tool_phase(torch, np, (cal_prototype.compute_prototypes, DeepLab, DomainNorm2d,
+                                       SyntheticFundus, eval_transforms, BatchLoader))
+    bank_keys = {"loss_seg", "loss_adv", "loss_cup", "loss_disc", "loss_all", "loss_D", "loss_D2"}
+
+    def mc_slow(c):
+        c.method.mc_fast = False
+
+    def wotn(c):
+        c.method.bank_use_bu = False
+        c.method.use_weight_rectify = True
+        c.method.pseudo_from_initial = True
+
+    layers.set_dropout_impl("pallas")
+    try:
+        # the disk bank under TransNorm: K3 at the four sites of the S||T
+        # forward and their backward; the initial model is not used, no MC
+        bank_tn, bank_ms = prototype_path(torch, np, ports, mh, K3, "prototype", {
+            "warmup": {"k3_fwd": sites, "k3_bwd": sites},
+            "proto": {"k3_fwd": sites, "k3_bwd": sites}}, name="prototype tn", steps=4,
+            configure=to_tn, proto_bank=bank, keys=bank_keys | {"loss_bu"})
+        # the repeated-batch MC pass: T/2 = 4 no-grad lanes of the model's
+        # own dropout sites on top of the S||T forward, no K1
+        slow, slow_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
+            "warmup": {"k3_fwd": sites, "k3_bwd": sites},
+            "proto": {"k3_fwd": sites + 4 * sites, "k3_bwd": sites}},
+            name="prototype_full mc_slow", steps=4, configure=mc_slow)
+    finally:
+        layers.set_dropout_impl("xla16")
+    wotn_counts, _ = prototype_path(torch, np, ports, mh, K3, "prototype", {
+        "warmup": {}, "proto": {}}, name="prototype woTN", steps=2, warmup=False,
+        configure=wotn, proto_bank=bank, keys=bank_keys, banks_move=False)
+    say(f"steps in this run (median ms): prototype_full bn {flagship_ms:.2f}, tn {tn_ms:.2f} "
+        f"({tn_ms / flagship_ms:.3f}x), mc_slow under 'pallas' {slow_ms:.2f} "
+        f"({slow_ms / flagship_ms:.3f}x); prototype tn under 'pallas' {bank_ms:.2f} "
+        f"({bank_ms / flagship_ms:.3f}x)")
     other_methods_phase(torch, np, ports, mh, K3)
     wire_phase(torch, np, wire)
-    trainer_phase(torch, (cli, ckpt_lib, LOG_HEADERS), mh, K3, flagship_ms)
+    trainer_ports = (cli, ckpt_lib, LOG_HEADERS, Trainer)
+    trainer = trainer_phase(torch, trainer_ports, mh, K3, flagship_ms)
+    bank_trainer = bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3)
+    # each kernel's launches over every path this run drove
+    paths = (flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, trainer, bank_trainer)
+    launched = {k: sum(p[k] for p in paths) for k in flagship}
+    say(f"launches over the paths: {launched}")
 
     def row(name, source, replaces, launches, nums, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -622,15 +861,15 @@ def main() -> None:
     kernels = [
         # no single PyTorch call computes the mask-head epilogue
         row("mask_head_split", mask_src, "uda_clr_tpu/ops/pallas/mask_head.py:154",
-            flagship["k1"], mask_numbers["K1"], None),
+            launched["k1"], mask_numbers["K1"], None),
         # K2 is on no train path (the JAX package calls fused_mask_head only in its tests)
         row("mask_head", mask_src, "uda_clr_tpu/ops/pallas/mask_head.py:65",
-            mt["k2"], mask_numbers["K2"], None),
+            launched["k2"], mask_numbers["K2"], None),
         # K3: times summed over the four dropout sites of one S||T forward
         row("dropout_forward", drop_src, "uda_clr_tpu/ops/pallas/dropout.py:70",
-            mt["k3_fwd"], k3_numbers["fwd"], k3_numbers["fwd"]["library_ms"]),
+            launched["k3_fwd"], k3_numbers["fwd"], k3_numbers["fwd"]["library_ms"]),
         row("dropout_backward", drop_src, "uda_clr_tpu/ops/pallas/dropout.py:70",
-            mt["k3_bwd"], k3_numbers["bwd"], k3_numbers["bwd"]["library_ms"]),
+            launched["k3_bwd"], k3_numbers["bwd"], k3_numbers["bwd"]["library_ms"]),
     ]
     say(json.dumps({"kernels": kernels}))
     say(card)

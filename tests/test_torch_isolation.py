@@ -3,7 +3,8 @@ modules, or running chip_smoke.py's imports, loads neither JAX nor any
 module of the JAX package, and needs none of Pillow, PyYAML, cv2, orbax or
 tensorboard, which a CUDA machine may lack: a fresh interpreter that
 refuses to import those imports every port module and chip_smoke.py, runs
-one ``train_transforms(64, wire="u8")`` sample and ``build_config([])``.
+one ``train_transforms(64, wire="u8")`` sample and ``build_config([])``, and
+builds a TransNorm model.
 Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
@@ -43,6 +44,10 @@ sample = SyntheticFundus(1, 92, transform=train_transforms(64, wire='u8')).get(
     0, np.random.default_rng(0))
 assert sample['image'].shape == (64, 64, 3) and sample['image'].dtype == np.uint8
 assert build_config([]).run.max_epoch == 500
+from uda_clr_tpu_torch.models.deeplab import DeepLab
+from uda_clr_tpu_torch.tools.cal_prototype import compute_prototypes
+tn = DeepLab(norm='tn')
+assert 'backbone.features.0.1.running_var_target' in tn.state_dict()
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.')
              or m == 'flax' or m.startswith('flax.')
@@ -59,7 +64,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + ["", ""])[:2]
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 43
+    assert int(count) == len(modules) + 1 >= 45
     assert bad == "", f"the port loaded: {bad}"
 
 

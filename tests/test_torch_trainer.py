@@ -234,10 +234,10 @@ def test_other_methods_train_an_epoch(method, keys, tmp_path):
     (lambda c: setattr(c.run, "dist_coordinator", "localhost:1234"), "A12"),
     (lambda c: setattr(c.run, "mesh_shape", (2,)), "A12"),
     (lambda c: setattr(c.run, "initial_resume", "runs/x/checkpoints/checkpoint_3"), "orbax"),
-    (lambda c: setattr(c.method, "pseudo_from_initial", True), "A9"),
-    (lambda c: setattr(c.method, "prototype_bank_path", "bank.npz"), "A9"),
+    (lambda c: setattr(c.method, "method", "bcdm"), "A9"),
+    (lambda c: setattr(c.run, "dist_num_processes", 2), "A12"),
     (lambda c: setattr(c.run, "save_val_images", True), "save_val_images"),
-    (lambda c: setattr(c.model, "norm", "tn"), "A10"),
+    (lambda c: setattr(c.model, "remat", True), "A11"),
 ])
 def test_out_of_slice_options_raise(change, match, tmp_path):
     cfg = _small_cfg(1)

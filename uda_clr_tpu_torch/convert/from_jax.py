@@ -6,9 +6,11 @@ The inverse of ``convert_deeplab_state_dict`` /
 written here without importing them: conv kernels go HWIO -> OIHW (a
 depthwise [k,k,1,C] kernel becomes [C,1,k,k] by the same transpose), BN
 ``scale``/``bias`` -> ``weight``/``bias``, batch stats ``mean``/``var`` ->
-``running_mean``/``running_var``. MobileNet backbone only (this slice).
-:func:`train_state_dicts` carries a whole JAX ``TrainState`` across: the
-generator, the discriminators it holds and the mean teacher.
+``running_mean``/``running_var`` (plain BN) or TransNorm's
+``{mean,var}_{source,target}`` -> ``running_{mean,var}_{source,target}``.
+MobileNet backbone only. :func:`train_state_dicts` carries a whole JAX
+``TrainState`` across: the generator, the discriminators it holds, the mean
+teacher, the frozen initial model and the disk prototype bank.
 """
 
 from __future__ import annotations
@@ -33,13 +35,17 @@ def _conv(sd: dict, key: str, node: dict) -> None:
 def _bn(sd: dict, key: str, params: dict, stats: dict) -> None:
     sd[f"{key}.weight"] = _t(params["scale"])
     sd[f"{key}.bias"] = _t(params["bias"])
-    sd[f"{key}.running_mean"] = _t(stats["mean"])
-    sd[f"{key}.running_var"] = _t(stats["var"])
+    if "mean" in stats:
+        sd[f"{key}.running_mean"] = _t(stats["mean"])
+        sd[f"{key}.running_var"] = _t(stats["var"])
+    else:  # TransNorm
+        for k in ("mean_source", "mean_target", "var_source", "var_target"):
+            sd[f"{key}.running_{k}"] = _t(stats[k])
 
 
 def deeplab_state_dict(params: dict, stats: dict, output_stride: int = 16) -> dict:
-    """JAX DeepLab(backbone='mobilenet', norm='bn') variables -> the port's
-    ``DeepLab`` state_dict (reference key names)."""
+    """JAX DeepLab(backbone='mobilenet', norm='bn' or 'tn') variables -> the
+    port's ``DeepLab`` state_dict (reference key names)."""
     sd: dict = {}
     bb, bbs = params["backbone"], stats["backbone"]
     _conv(sd, "backbone.features.0.0", bb["stem"])
@@ -82,17 +88,21 @@ def discriminator_state_dict(params: dict) -> dict:
 
 
 def train_state_dicts(jstate, output_stride: int = 16) -> dict:
-    """The keyword state_dicts of ``train.state.create_train_state`` from a
+    """The keyword arguments of ``train.state.create_train_state`` from a
     JAX ``TrainState`` (read by attribute: ``gen_params``/``gen_stats``,
-    ``dis_params``, ``dis2_params``, ``teacher_params``/``teacher_stats``);
-    a field that is None or absent gives None."""
+    ``dis_params``, ``dis2_params``, ``teacher_params``/``teacher_stats``,
+    ``initial_params``/``initial_stats``, ``proto_bank``); a field that is
+    None or absent gives None."""
     get = lambda name: getattr(jstate, name, None)
     out = {"gen_state_dict": deeplab_state_dict(get("gen_params"), get("gen_stats"),
                                                 output_stride)}
     for key, name in (("dis_state_dict", "dis_params"), ("dis2_state_dict", "dis2_params")):
         params = get(name)
         out[key] = None if params is None else discriminator_state_dict(params)
-    teacher = get("teacher_params")
-    out["teacher_state_dict"] = None if teacher is None else deeplab_state_dict(
-        teacher, get("teacher_stats"), output_stride)
+    for key, name in (("teacher_state_dict", "teacher"), ("initial_state_dict", "initial")):
+        params = get(f"{name}_params")
+        out[key] = None if params is None else deeplab_state_dict(
+            params, get(f"{name}_stats"), output_stride)
+    bank = get("proto_bank")
+    out["proto_bank"] = None if bank is None else {k: _t(v) for k, v in bank.items()}
     return out

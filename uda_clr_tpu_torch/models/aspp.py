@@ -16,31 +16,33 @@ from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
 class _ASPPBranch(nn.Module):
-    def __init__(self, inplanes: int, planes: int, kernel_size: int, dilation: int):
+    def __init__(self, inplanes: int, planes: int, kernel_size: int, dilation: int,
+                 norm: str = "bn"):
         super().__init__()
         pad = 0 if kernel_size == 1 else dilation
         self.atrous_conv = Conv2d(inplanes, planes, kernel_size, 1, pad, dilation, bias=False)
-        self.bn = DomainNorm2d(planes)
+        self.bn = DomainNorm2d(planes, mode=norm)
 
     def forward(self, x, train: bool, domains: int):
         return F.relu(self.bn(self.atrous_conv(x), train, domains))
 
 
 class ASPP(nn.Module):
-    def __init__(self, inplanes: int = 320, output_stride: int = 16):
+    def __init__(self, inplanes: int = 320, output_stride: int = 16, norm: str = "bn"):
         super().__init__()
         if output_stride != 16:
             raise NotImplementedError(f"output_stride {output_stride}")
         d = (1, 6, 12, 18)
-        self.aspp1 = _ASPPBranch(inplanes, 256, 1, d[0])
-        self.aspp2 = _ASPPBranch(inplanes, 256, 3, d[1])
-        self.aspp3 = _ASPPBranch(inplanes, 256, 3, d[2])
-        self.aspp4 = _ASPPBranch(inplanes, 256, 3, d[3])
+        self.aspp1 = _ASPPBranch(inplanes, 256, 1, d[0], norm)
+        self.aspp2 = _ASPPBranch(inplanes, 256, 3, d[1], norm)
+        self.aspp3 = _ASPPBranch(inplanes, 256, 3, d[2], norm)
+        self.aspp4 = _ASPPBranch(inplanes, 256, 3, d[3], norm)
         self.global_avg_pool = nn.ModuleList([
-            nn.AdaptiveAvgPool2d(1), Conv2d(inplanes, 256, 1, bias=False), DomainNorm2d(256),
+            nn.AdaptiveAvgPool2d(1), Conv2d(inplanes, 256, 1, bias=False),
+            DomainNorm2d(256, mode=norm),
         ])
         self.conv1 = Conv2d(1280, 256, 1, bias=False)
-        self.bn1 = DomainNorm2d(256)
+        self.bn1 = DomainNorm2d(256, mode=norm)
 
     def predrop(self, x: torch.Tensor, train: bool, domains: int = 1) -> torch.Tensor:
         """All of ASPP except the final Dropout(0.5)."""

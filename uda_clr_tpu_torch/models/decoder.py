@@ -15,16 +15,18 @@ from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
 
 
 class Decoder(nn.Module):
-    def __init__(self, num_classes: int = 2, low_level_inplanes: int = 24):
+    def __init__(self, num_classes: int = 2, low_level_inplanes: int = 24, norm: str = "bn"):
         super().__init__()
         self.conv1 = Conv2d(low_level_inplanes, 48, 1, bias=False)
-        self.bn1 = DomainNorm2d(48)
+        self.bn1 = DomainNorm2d(48, mode=norm)
         self.last_conv = nn.ModuleList([
-            DomainNorm2d(305), nn.ReLU(), Dropout(0.1), Conv2d(305, num_classes, 1),
+            DomainNorm2d(305, mode=norm), nn.ReLU(), Dropout(0.1), Conv2d(305, num_classes, 1),
         ])
         self.last_conv_boundary = nn.ModuleList([
-            Conv2d(304, 256, 3, 1, 1, bias=False), DomainNorm2d(256), nn.ReLU(), Dropout(0.5),
-            Conv2d(256, 256, 3, 1, 1, bias=False), DomainNorm2d(256), nn.ReLU(), Dropout(0.1),
+            Conv2d(304, 256, 3, 1, 1, bias=False), DomainNorm2d(256, mode=norm), nn.ReLU(),
+            Dropout(0.5),
+            Conv2d(256, 256, 3, 1, 1, bias=False), DomainNorm2d(256, mode=norm), nn.ReLU(),
+            Dropout(0.1),
             Conv2d(256, 1, 1),
         ])
 

@@ -41,13 +41,14 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 class DeepLab(nn.Module):
     def __init__(self, num_classes: int = 2, backbone: str = "mobilenet",
-                 output_stride: int = 16, seed: int = 0):
+                 output_stride: int = 16, seed: int = 0, norm: str = "bn"):
         super().__init__()
         if backbone != "mobilenet":
             raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
-        self.backbone = MobileNetV2(output_stride)
-        self.aspp = ASPP(320, output_stride)
-        self.decoder = Decoder(num_classes, 24)
+        self.norm = norm  # 'bn' | 'tn' (TransNorm) at every norm site
+        self.backbone = MobileNetV2(output_stride, norm)
+        self.aspp = ASPP(320, output_stride, norm)
+        self.decoder = Decoder(num_classes, 24, norm)
         g = torch.Generator().manual_seed(seed)
         for m in self.modules():
             if isinstance(m, Conv2d):

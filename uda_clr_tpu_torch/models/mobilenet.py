@@ -43,17 +43,18 @@ def mobilenet_block_plan(output_stride: int = 16):
 
 
 class InvertedResidual(nn.Module):
-    def __init__(self, inp: int, oup: int, stride: int, dilation: int, t: int):
+    def __init__(self, inp: int, oup: int, stride: int, dilation: int, t: int,
+                 norm: str = "bn"):
         super().__init__()
         hidden = round(inp * t)
         self.dilation = dilation
         self.use_res = stride == 1 and inp == oup
         dw = Conv2d(hidden, hidden, 3, stride, 0, dilation, groups=hidden, bias=False)
         layers = [] if t == 1 else [
-            Conv2d(inp, hidden, 1, 1, 0, bias=False), DomainNorm2d(hidden), nn.ReLU6(),
+            Conv2d(inp, hidden, 1, 1, 0, bias=False), DomainNorm2d(hidden, mode=norm), nn.ReLU6(),
         ]
-        layers += [dw, DomainNorm2d(hidden), nn.ReLU6(),
-                   Conv2d(hidden, oup, 1, 1, 0, bias=False), DomainNorm2d(oup)]
+        layers += [dw, DomainNorm2d(hidden, mode=norm), nn.ReLU6(),
+                   Conv2d(hidden, oup, 1, 1, 0, bias=False), DomainNorm2d(oup, mode=norm)]
         self.conv = nn.ModuleList(layers)
 
     def forward(self, x, train: bool, domains: int = 1):
@@ -64,10 +65,11 @@ class InvertedResidual(nn.Module):
 class MobileNetV2(nn.Module):
     """Returns (high [B,320,H/os,W/os], low [B,24,H/4,W/4]), NCHW."""
 
-    def __init__(self, output_stride: int = 16):
+    def __init__(self, output_stride: int = 16, norm: str = "bn"):
         super().__init__()
-        stem = nn.ModuleList([Conv2d(3, 32, 3, 2, 1, bias=False), DomainNorm2d(32), nn.ReLU6()])
-        blocks = [InvertedResidual(*p) for p in mobilenet_block_plan(output_stride)]
+        stem = nn.ModuleList([Conv2d(3, 32, 3, 2, 1, bias=False), DomainNorm2d(32, mode=norm),
+                              nn.ReLU6()])
+        blocks = [InvertedResidual(*p, norm=norm) for p in mobilenet_block_plan(output_stride)]
         self.features = nn.ModuleList([stem] + blocks)
 
     def forward(self, x: torch.Tensor, train: bool, domains: int = 1):

@@ -1,5 +1,5 @@
-"""Domain-aware batch normalization, ``'bn'`` mode (uda_clr_tpu/models/norm.py
-:46-73,212-251).
+"""Domain-aware batch normalization (uda_clr_tpu/models/norm.py): plain BN
+(``'bn'``, :46-73,212-251) and TransNorm (``'tn'``, :103-210).
 
 * Moments are reduced in float32 as E[x^2] - E[x]^2 (biased), clamped at
   >= 0 — not ``torch.var``.
@@ -8,6 +8,19 @@
   own moments; running stats then update target half first, source second.
 * Running stats use the unbiased factor n/(n-1) and momentum 0.1, and are
   written in place on every train-mode call.
+
+TransNorm keeps per-domain running stats with a shared affine, and scales
+each channel by the detached transferability factor ``a1 = 1 + C p / sum(p)``,
+``p = 1 / (1 + |mu_s / sigma_s - mu_t / sigma_t|)`` (sigma from the
+*unbiased* variance), folded into the affine as scale * a1 and bias * a1:
+
+* train mode always splits the batch into [source; target] halves, whatever
+  ``domains`` says (an odd batch splits unevenly, source first);
+* ``domains=0`` is the MC pass's degenerate mode: the batch stands for an
+  identical-halves [T; T] repeat, for which a1 == 2 exactly, so the layer
+  normalizes with its own batch moments times 2 and writes no stats;
+* eval mode normalizes with the target running stats, a1 from the running
+  stats.
 """
 
 from __future__ import annotations
@@ -36,37 +49,100 @@ def normalize(x, mean, var, scale, bias, eps: float = 1e-5):
         + bias.reshape(bias.shape[:-1] + (-1, 1, 1)).to(dt)
 
 
-class DomainNorm2d(nn.Module):
-    """BatchNorm2d with an optional source||target split (``domains=2``).
+def transfer_factor(mean_s, var_s, mean_t, var_t, eps: float) -> torch.Tensor:
+    """TransNorm's detached per-channel ``1 + alpha`` from two domains'
+    means and (unbiased) variances."""
+    dis = torch.abs(mean_s * torch.rsqrt(var_s + eps) - mean_t * torch.rsqrt(var_t + eps))
+    prob = 1.0 / (1.0 + dis)
+    return (1.0 + mean_s.shape[-1] * prob / torch.sum(prob)).detach()
 
-    State-dict keys are ``weight``, ``bias``, ``running_mean`` and
-    ``running_var``, as the reference's ``nn.BatchNorm2d``. ``domains`` 0
-    and 1 are the same for plain BN.
+
+class DomainNorm2d(nn.Module):
+    """BatchNorm2d (``mode='bn'``) with an optional source||target split
+    (``domains=2``), or TransNorm (``mode='tn'``).
+
+    State-dict keys are the reference's: ``weight``, ``bias`` and
+    ``running_mean``/``running_var`` (``nn.BatchNorm2d``), or for TransNorm
+    ``running_{mean,var}_{source,target}`` (sync_batchnorm/batchnorm.py
+    :313-317). ``domains`` 0 and 1 are the same for plain BN.
     """
 
-    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 mode: str = "bn"):
         super().__init__()
+        if mode not in ("bn", "tn"):
+            raise ValueError(f"norm mode {mode!r}; 'bn' or 'tn'")
+        self.mode = mode
         self.eps = eps
         self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        if mode == "bn":
+            self.register_buffer("running_mean", torch.zeros(features))
+            self.register_buffer("running_var", torch.ones(features))
+        else:
+            for dom in ("source", "target"):
+                self.register_buffer(f"running_mean_{dom}", torch.zeros(features))
+            for dom in ("source", "target"):
+                self.register_buffer(f"running_var_{dom}", torch.ones(features))
 
     # False inside :func:`frozen_stats`: train-mode forwards then write no
     # running stats (the JAX package's ``mutable=False`` applies)
     update_stats = True
 
     @torch.no_grad()
-    def _ema(self, mean, var, n: int):
+    def _ema(self, mean, var, n: int, domain: str = ""):
+        """EMA of the running stats (``domain`` 'source'/'target' for TN)
+        toward a batch mean and biased variance over ``n`` values."""
         if not self.update_stats:
             return
         m = self.momentum
         unbias = n / max(n - 1, 1)
-        self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-        self.running_var.copy_((1.0 - m) * self.running_var + m * (var * unbias))
+        sfx = f"_{domain}" if domain else ""
+        r_mean, r_var = getattr(self, "running_mean" + sfx), getattr(self, "running_var" + sfx)
+        r_mean.copy_((1.0 - m) * r_mean + m * mean)
+        r_var.copy_((1.0 - m) * r_var + m * (var * unbias))
+
+    def _forward_tn(self, x: torch.Tensor, train: bool, domains: int) -> torch.Tensor:
+        scale, bias, eps = self.weight, self.bias, self.eps
+        if not train:
+            a1 = transfer_factor(self.running_mean_source, self.running_var_source,
+                                 self.running_mean_target, self.running_var_target, eps)
+            return normalize(x, self.running_mean_target, self.running_var_target,
+                             scale * a1, bias * a1, eps)
+        n_pix = x.shape[2] * x.shape[3]
+        if domains == 0:
+            mu, v = batch_moments(x, (0, 2, 3))
+            return normalize(x, mu, v, scale * 2.0, bias * 2.0, eps)
+        b = x.shape[0] // 2
+        if x.shape[0] % 2:
+            # the reference's uneven b//2 split (batchnorm.py:439-442)
+            halves = (x[:b], x[b:])
+            moments = [batch_moments(h, (0, 2, 3)) for h in halves]
+            counts = [h.shape[0] * n_pix for h in halves]
+            for (mu, v), n, dom in zip(moments, counts, ("source", "target")):
+                self._ema(mu.detach(), v.detach(), n, dom)
+            (mu_s, v_s), (mu_t, v_t) = moments
+            ub_s = counts[0] / max(counts[0] - 1, 1)
+            ub_t = counts[1] / max(counts[1] - 1, 1)
+            a1 = transfer_factor(mu_s.detach(), v_s.detach() * ub_s,
+                                 mu_t.detach(), v_t.detach() * ub_t, eps)
+            return torch.cat([normalize(h, mu, v, scale * a1, bias * a1, eps)
+                              for h, (mu, v) in zip(halves, moments)], dim=0)
+        n = b * n_pix
+        x2 = x.unflatten(0, (2, b))  # [2, b, C, H, W]
+        mu2, v2 = batch_moments(x2, (1, 3, 4))  # [2, C]
+        self._ema(mu2[0].detach(), v2[0].detach(), n, "source")
+        self._ema(mu2[1].detach(), v2[1].detach(), n, "target")
+        vu = v2.detach() * (n / max(n - 1, 1))
+        a1 = transfer_factor(mu2[0].detach(), vu[0], mu2[1].detach(), vu[1], eps)
+        z = normalize(x2, mu2[:, None, :], v2[:, None, :], (scale * a1).expand(2, 1, -1),
+                      bias * a1, eps)
+        return z.flatten(0, 1)
 
     def forward(self, x: torch.Tensor, train: bool, domains: int = 1) -> torch.Tensor:
+        if self.mode == "tn":
+            return self._forward_tn(x, train, domains)
         if not train:
             return normalize(x, self.running_mean, self.running_var,
                              self.weight, self.bias, self.eps)

@@ -1,10 +1,13 @@
-"""Class-prototype math (uda_clr_tpu/ops/prototypes.py:34-253), NHWC inputs
-as in the JAX package; every centroid division carries the +1e-12 guard."""
+"""Class-prototype math (uda_clr_tpu/ops/prototypes.py:34-296), NHWC inputs
+as in the JAX package; every centroid division carries the +1e-12 guard.
+The last five functions serve the disk-bank method (``method='prototype'``)
+and the prototype-bank tool."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
@@ -51,7 +54,8 @@ class RectifiedPrototypes(NamedTuple):
     conf_mask: torch.Tensor  # [B, h, w, 2]
 
 
-def _resize_nhwc(x, hw):
+def resize_nhwc(x, hw):
+    """Align-corners bilinear resize of an NHWC tensor to ``hw``."""
     return resize_bilinear_align_corners(x.permute(0, 3, 1, 2), hw).permute(0, 2, 3, 1)
 
 
@@ -67,8 +71,8 @@ def _rectify_masks(mask_before, feature, mc_logits, pseudo_threshold, std_thresh
     else:
         std_map = torch.zeros_like(preds_soft[0])
     prediction = torch.mean(torch.sigmoid(mc_logits), 0)
-    prediction_small = _resize_nhwc(prediction, (h, w))
-    std_small = _resize_nhwc(std_map, (h, w))
+    prediction_small = resize_nhwc(prediction, (h, w))
+    std_small = resize_nhwc(std_map, (h, w))
 
     pseudo = (torch.sigmoid(mask_before) > pseudo_threshold).to(feature.dtype)
     conf = (std_small < std_threshold).to(feature.dtype)
@@ -129,3 +133,48 @@ def source_discriminative_loss(feature: torch.Tensor, pred: torch.Tensor,
             + torch.mean((1.0 - cup) * relu(d_cup_bck - d_cup_obj + margin))
             + torch.mean(disc * relu(d_disc_obj - d_disc_bck + margin))
             + torch.mean((1.0 - disc) * relu(d_disc_bck - d_disc_obj + margin)))
+
+
+def masked_pool_mean(feature: torch.Tensor, mask: torch.Tensor, eps: float = 1.0) -> torch.Tensor:
+    """Per-image masked pooling with a smoothed denominator, then the batch
+    mean: ``mean_b(sum_hw(feature * mask) / (sum_hw(mask) + eps))``
+    (prototypes.py:255-269). eps is +1, or +1e-16 for the cup/disc pools of
+    the ``bank_use_bu=False`` ablation. [B,h,w,C] x [B,h,w,1] -> [C]."""
+    num = torch.sum(feature * mask, dim=(1, 2))  # [B, C]
+    den = torch.sum(mask, dim=(1, 2)) + eps  # [B, 1]
+    return torch.mean(num / den, dim=0)
+
+
+def adaptation_factor(m: float) -> float:
+    """The epoch-ramped pseudo-label threshold ``1/(1+exp(-0.8(m+1))) - 0.3``
+    (prototypes.py:272-275), in float32 as the JAX step traces it."""
+    f = np.float32
+    return float(f(1.0) / (f(1.0) + np.exp(f(-0.8) * (f(m) + f(1.0)))) - f(0.3))
+
+
+def cosine_prototype_weight(feature: torch.Tensor, prototype: torch.Tensor) -> torch.Tensor:
+    """Per-pixel cosine similarity to a prototype (prototypes.py:278-283),
+    [B,h,w,C] x [C] -> [B,h,w,1]."""
+    fn = feature / (torch.linalg.vector_norm(feature, dim=-1, keepdim=True) + 1e-8)
+    pn = prototype / (torch.linalg.vector_norm(prototype) + 1e-8)
+    return torch.einsum("bhwc,c->bhw", fn, pn)[..., None]
+
+
+def feat_prototype_distance(feature: torch.Tensor, prototype: torch.Tensor) -> torch.Tensor:
+    """Per-pixel L2 distance to a prototype (prototypes.py:286-290),
+    [B,h,w,C] x [C] -> [B,h,w,1]."""
+    return torch.linalg.vector_norm(feature - prototype, dim=-1)[..., None]
+
+
+def minmax_prototype_weight(dist: torch.Tensor) -> torch.Tensor:
+    """Min-max normalized distance weight (prototypes.py:293-296)."""
+    lo, hi = torch.min(dist), torch.max(dist)
+    return (dist - lo) / (hi - lo + _EPS)
+
+
+def bank_ema(bank: torch.Tensor, cur: torch.Tensor, momentum: float) -> torch.Tensor:
+    """One disk-bank vector's EMA toward the current target prototype
+    (steps.py:862-876, update_objective_SingleVector); an all-zero
+    prototype leaves the vector as it was."""
+    upd = (1.0 - momentum) * bank + momentum * cur.detach()
+    return torch.where(torch.sum(cur.detach()) != 0.0, upd, bank)

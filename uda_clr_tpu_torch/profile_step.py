@@ -1,15 +1,19 @@
 """Where a prototype-phase train step's time goes on the card.
 
-    python -m uda_clr_tpu_torch.profile_step [--method prototype_full] [--dropout xla16] [--steps 3]
+    python -m uda_clr_tpu_torch.profile_step [--method prototype_full] [--norm bn]
+        [--mc-slow] [--dropout xla16] [--steps 3]
 
 Builds chip_smoke.py's full-width configuration (mobilenet DeepLabv3+ OS16,
 512x512, 8 source + 8 target images, T=8, bfloat16) for ``--method``
-(``prototype_full`` or ``prototype_mt``) under the ``--dropout`` backend
-(``set_dropout_impl``; ``pallas`` runs the fused dropout kernel), runs one
-warmup and two prototype-phase steps untimed, then profiles ``--steps``
-prototype-phase steps with ``torch.profiler``. Prints the device time by
-operator (top 25), the device time grouped into families, and the device
-busy share of the profiled wall time. Needs a CUDA card.
+(``prototype_full``, ``prototype_mt`` or the disk-bank ``prototype``, with a
+random bank) under ``--norm`` (``bn``, or ``tn`` for TransNorm), with the
+repeated-batch MC pass under ``--mc-slow`` (``mc_fast=False``) and the
+``--dropout`` backend (``set_dropout_impl``; ``pallas`` runs the fused
+dropout kernel); runs one warmup and two prototype-phase steps untimed,
+then profiles ``--steps`` prototype-phase steps with ``torch.profiler``.
+Prints the device time by operator (top 25), the device time grouped into
+families, and the device busy share of the profiled wall time. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from uda_clr_tpu_torch.config import Config
 from uda_clr_tpu_torch.models import layers
-from uda_clr_tpu_torch.train.state import create_train_state
+from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state
 from uda_clr_tpu_torch.train.steps import make_train_step
 
 # operator-name fragments -> family, first match wins
@@ -45,7 +49,11 @@ FAMILIES = (
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3, help="profiled prototype-phase steps")
-    ap.add_argument("--method", default="prototype_full", choices=("prototype_full", "prototype_mt"))
+    ap.add_argument("--method", default="prototype_full",
+                    choices=("prototype_full", "prototype_mt", "prototype"))
+    ap.add_argument("--norm", default="bn", choices=("bn", "tn"))
+    ap.add_argument("--mc-slow", action="store_true",
+                    help="the repeated-batch MC pass (mc_fast=False)")
     ap.add_argument("--dropout", default="xla16", choices=layers.IMPLS, help="dropout backend")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -55,6 +63,8 @@ def main() -> None:
     cfg = Config()
     cfg.model.compute_dtype = "bfloat16"
     cfg.method.mc_samples = 8
+    cfg.model.norm = args.norm
+    cfg.method.mc_fast = not args.mc_slow
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in {
         "image_s": rng.standard_normal((b, size, size, 3)),
@@ -63,7 +73,8 @@ def main() -> None:
         "image_t": rng.standard_normal((b, size, size, 3)),
     }.items()}
     layers.set_dropout_impl(args.dropout)
-    state = create_train_state(cfg, seed=0, device="cuda", method=args.method)
+    bank = {k: 0.1 * rng.standard_normal(n) for k, n in BANK_SIZES.items()}
+    state = create_train_state(cfg, seed=0, device="cuda", method=args.method, proto_bank=bank)
     warm = make_train_step(cfg, args.method, proto_phase=False)
     proto = make_train_step(cfg, args.method, proto_phase=True)
     state, _ = warm(state, batch, 1e-3, 2.5e-5)
@@ -85,7 +96,8 @@ def main() -> None:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     device_ms = sum(kernels.values())
     per_step = args.steps
-    print(f"{torch.cuda.get_device_name(0)}: {args.method}, dropout {args.dropout}, "
+    print(f"{torch.cuda.get_device_name(0)}: {args.method}, norm {args.norm}, "
+          f"mc_fast {cfg.method.mc_fast}, dropout {args.dropout}, "
           f"{per_step} prototype-phase steps, "
           f"wall {wall_ms / per_step:.2f} ms/step, device busy {device_ms / per_step:.2f} ms/step "
           f"({100 * device_ms / wall_ms:.1f}% of wall)")

@@ -10,8 +10,11 @@ discriminators the method plays against), ``optim_state_dict``,
 ``optim_dis_state_dict``, ``optim_dis2_state_dict`` and the learning rates.
 An exact resume also needs what the port adds: the prototype banks and
 their init flags, the state's ``torch.Generator`` state, ``seed`` and
-``step`` (the K1/K3 Philox seeds derive from them, train/steps.py), and the
-mean teacher's state_dict.
+``step`` (the K1/K3 Philox seeds derive from them, train/steps.py), the
+mean teacher's state_dict, and for the disk-bank method its bank
+(``proto_bank``) and the frozen initial model (``initial_state_dict``).
+TransNorm's running stats sit in ``model_state_dict`` under the
+reference's keys (``running_{mean,var}_{source,target}``).
 """
 
 from __future__ import annotations
@@ -78,13 +81,18 @@ def state_dict(state: TrainState) -> dict:
             ckpt[f"learning_rate_{name}"] = _lr(opt)
     if state.teacher is not None:
         ckpt["teacher_state_dict"] = state.teacher.state_dict()
+    if state.initial is not None:
+        ckpt["initial_state_dict"] = state.initial.state_dict()
+    if state.proto_bank is not None:
+        ckpt["proto_bank"] = dict(state.proto_bank)
     return _cpu(ckpt)
 
 
 def load_state_dict(state: TrainState, ckpt: dict) -> TrainState:
     """Restore ``ckpt`` into ``state`` in place (modules, optimizers, banks,
     random state, step counter); the checkpoint must come from the same
-    method (the same discriminators and teacher)."""
+    method and switches (the same discriminators, teacher, disk bank and
+    initial model)."""
     state.gen.load_state_dict(ckpt["model_state_dict"])
     state.gen_opt.load_state_dict(ckpt["optim_state_dict"])
     for name, model, opt in (("dis", state.dis, state.dis_opt), ("dis2", state.dis2, state.dis2_opt)):
@@ -98,7 +106,16 @@ def load_state_dict(state: TrainState, ckpt: dict) -> TrainState:
         raise ValueError("checkpoint and state disagree on the mean teacher")
     if state.teacher is not None:
         state.teacher.load_state_dict(ckpt["teacher_state_dict"])
+    if (state.initial is None) != ("initial_state_dict" not in ckpt):
+        raise ValueError("checkpoint and state disagree on the initial model "
+                         "(pseudo_from_initial)")
+    if state.initial is not None:
+        state.initial.load_state_dict(ckpt["initial_state_dict"])
+    if (state.proto_bank is None) != ("proto_bank" not in ckpt):
+        raise ValueError("checkpoint and state disagree on the disk prototype bank")
     device = state.proto_src.device
+    if state.proto_bank is not None:
+        state.proto_bank = {k: v.to(device) for k, v in ckpt["proto_bank"].items()}
     for key in ("proto_src", "proto_trg", "proto_src_init", "proto_trg_init"):
         setattr(state, key, ckpt[key].to(device))
     state.generator.set_state(ckpt["generator_state"])

@@ -1,7 +1,8 @@
 """Training state (uda_clr_tpu/train/state.py:26-150): the generator, the
 discriminators the method plays against, their optimizers, the two EMA
 prototype banks with their "seeded yet" flags, the mean teacher's shadow
-model, and the step's random sources."""
+model, the disk-bank method's prototype bank and frozen initial model, and
+the step's random sources."""
 
 from __future__ import annotations
 
@@ -21,7 +22,10 @@ from uda_clr_tpu_torch.models.gan import (
 from uda_clr_tpu_torch.train import optim as optim_lib
 
 FEATURE_DIM = 305  # decoder x_feature channels
-METHODS = ("baseline", "adversarial", "posal", "prototype_full", "prototype_mt", "mean_teacher")
+METHODS = ("baseline", "adversarial", "posal", "prototype", "prototype_full", "prototype_mt",
+           "mean_teacher")
+# the disk bank's vectors: x_bu_feature (304) and x_feature (305) channels
+BANK_SIZES = {"bu": FEATURE_DIM - 1, "cup": FEATURE_DIM, "disc": FEATURE_DIM}
 
 
 @dataclass
@@ -40,6 +44,12 @@ class TrainState:
     seed: int  # base of the kernels' 64-bit Philox seeds
     step: int = 0
     teacher: DeepLab | None = None  # mean teacher: EMA of gen's params, gen's running stats
+    # disk-bank method: {'bu': [304], 'cup': [305], 'disc': [305]}, from the
+    # prototype-bank tool's .npz (or zeros), EMA-updated by the step
+    proto_bank: dict | None = None
+    # pseudo_from_initial: a frozen copy of the generator (after the initial
+    # resume) whose eval-mode 'before' heads give the target pseudo-labels
+    initial: DeepLab | None = None
 
 
 def discriminators_used(cfg: Config, method: str) -> tuple[bool, bool]:
@@ -48,7 +58,7 @@ def discriminators_used(cfg: Config, method: str) -> tuple[bool, bool]:
     ``posal`` forces the entropy D off."""
     mcfg = cfg.method
     if method not in METHODS:
-        raise NotImplementedError(f"method {method!r} is not ported yet")
+        raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP A9)")
     if method == "baseline" or not mcfg.use_adv:
         return False, False
     return mcfg.use_boundary_d, mcfg.use_entropy_d and method != "posal"
@@ -57,16 +67,21 @@ def discriminators_used(cfg: Config, method: str) -> tuple[bool, bool]:
 def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = "cuda",
                        gen_state_dict=None, dis_state_dict=None,
                        dis2_state_dict=None, method: str = "prototype_full",
-                       teacher_state_dict=None) -> TrainState:
+                       teacher_state_dict=None, initial_state_dict=None,
+                       proto_bank=None) -> TrainState:
     """Build the modules ``method`` needs from ``seed`` (or load the given
-    state_dicts, e.g. from :mod:`uda_clr_tpu_torch.convert.from_jax`), move
-    them to ``device`` (``channels_last`` on the card) and create the
-    optimizers. ``mean_teacher`` gets a teacher that starts as a copy of
-    the generator unless ``teacher_state_dict`` is given."""
+    state_dicts, e.g. from :mod:`uda_clr_tpu_torch.convert.from_jax`), with
+    ``cfg.model.norm`` at every norm site, move them to ``device``
+    (``channels_last`` on the card) and create the optimizers.
+    ``mean_teacher`` gets a teacher that starts as a copy of the generator
+    unless ``teacher_state_dict`` is given; ``prototype`` gets a disk bank
+    (``proto_bank``, arrays or tensors keyed bu/cup/disc; zeros if None);
+    ``cfg.method.pseudo_from_initial`` a frozen initial model, a copy of
+    the generator unless ``initial_state_dict`` is given."""
     device = resolve_device(device)
     use_bd, use_ed = discriminators_used(cfg, method)
     gen = DeepLab(cfg.model.num_classes, cfg.model.backbone, cfg.model.output_stride,
-                  seed=seed)
+                  seed=seed, norm=cfg.model.norm)
     dis = BoundaryDiscriminator(seed + 1) if use_bd else None
     dis2 = UncertaintyDiscriminator(seed + 2) if use_ed else None
     for module, sd in ((gen, gen_state_dict), (dis, dis_state_dict), (dis2, dis2_state_dict)):
@@ -83,6 +98,21 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
         if teacher_state_dict is not None:
             teacher.load_state_dict(teacher_state_dict)
         teacher.requires_grad_(False)
+    initial = None
+    if cfg.method.pseudo_from_initial:
+        initial = copy.deepcopy(gen)
+        if initial_state_dict is not None:
+            initial.load_state_dict(initial_state_dict)
+        initial.requires_grad_(False)
+    bank = None
+    if method == "prototype":
+        bank = {k: torch.zeros(n, dtype=torch.float32, device=device) if proto_bank is None
+                else torch.as_tensor(proto_bank[k], dtype=torch.float32).to(device).clone()
+                for k, n in BANK_SIZES.items()}
+        for k, n in BANK_SIZES.items():
+            if bank[k].shape != (n,):
+                raise ValueError(f"prototype bank {k!r} has shape {tuple(bank[k].shape)}, "
+                                 f"want ({n},)")
     zeros = torch.zeros((4, FEATURE_DIM), dtype=torch.float32, device=device)
     return TrainState(
         gen=gen, dis=dis, dis2=dis2,
@@ -95,4 +125,6 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
         generator=torch.Generator(device).manual_seed(seed),
         seed=seed,
         teacher=teacher,
+        proto_bank=bank,
+        initial=initial,
     )

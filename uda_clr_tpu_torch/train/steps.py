@@ -1,16 +1,23 @@
 """The generic single-forward train step (uda_clr_tpu/train/steps.py
-:make_train_step :493-1050, with its ``mc_inline`` branch :582-657 and
-``_mc_suffix`` :136-231) for ``baseline``, ``adversarial``, ``posal``,
-``prototype_full``, ``prototype_mt`` and ``mean_teacher``, switched by the
-method and the config's flags as the JAX step is.
+:make_train_step :493-1050, with its ``mc_inline`` branch :582-657, the
+standalone MC forward ``_mc_dropout_forward`` :234-301 and ``_mc_suffix``
+:136-231) for ``baseline``, ``adversarial``, ``posal``, ``prototype``,
+``prototype_full``, ``prototype_mt`` and ``mean_teacher``, under either
+norm (``'bn'``, ``'tn'``), switched by the method and the config's flags as
+the JAX step is.
 
 One forward of the batch (S||T with ``domains=2`` when the method uses the
 target; the source alone for the baseline) feeds the G loss, the D losses
 (on detached outputs) and the prototype pooling; running stats update as
-each part of the forward runs. The prototype phase reuses the target halves
-of (ASPP-predrop, low-level) for the MC pass, which writes no running stats
-and runs its mask head through the hand-written kernel K1
-(ops/mask_head.py). ``prototype_mt`` adds the source discriminative loss
+each part of the forward runs. Under plain BN with ``mc_fast`` the
+prototype phase reuses the target halves of (ASPP-predrop, low-level) for
+the MC pass; under TransNorm, or with ``mc_fast`` off, the MC pass is the
+standalone :func:`mc_dropout_forward` on the target batch. Either writes no
+running stats; the fast passes run their mask head through the
+hand-written kernel K1 (ops/mask_head.py), the slow one runs the model's
+own dropout sites (K3 under ``'pallas'``). ``prototype`` (the disk-bank
+method) pools per-image prototypes, pulls target toward source and EMAs a
+bank read from disk. ``prototype_mt`` adds the source discriminative loss
 and the augmented-consistency loss on target, whose augmented forward
 writes no running stats either. ``mean_teacher`` adds an eval-mode teacher
 forward and the teacher's EMA after the student's update.
@@ -50,8 +57,9 @@ from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
 
 _CL = torch.channels_last
 
-# sub-streams of a step's seed; K1 takes the step seed itself
-_MAIN_FORWARD, _AUG_FORWARD, _AUG_DRAWS = 1, 2, 3
+# sub-streams of a step's seed; K1 takes the step seed itself; the slow MC
+# pass's lane i draws from sub-stream _MC_LANES + i
+_MAIN_FORWARD, _AUG_FORWARD, _AUG_DRAWS, _MC_LANES = 1, 2, 3, 16
 
 
 def kernel_seed(seed: int, step: int) -> int:
@@ -73,14 +81,18 @@ def _conv(x, weight, padding: int, bias=None):
 
 @torch.no_grad()
 def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
-              generator: torch.Generator | None, seed: int):
+              generator: torch.Generator | None, seed: int, tn_degenerate: bool = False):
     """T dropout-sampled mask-head passes from the deterministic prefix
     (NCHW ``feat_predrop`` [B,256,h',w'] and ``ll`` [B,48,h,w]); returns
     [T, B, H, W, 2] mask logits. Writes no running stats: BN uses batch
     moments computed here (steps.py:93-107,136-231). Its dropout sites
     follow ``_mc_drop`` (never K3); the mask head is K1 at rate 0.1 from
-    ``seed``."""
+    ``seed``. ``tn_degenerate``: TransNorm's identical-halves mode (the
+    norm's ``domains=0``): the three norm sites' scale and bias times 2,
+    the coefficients K1 receives included."""
     H, W = hw
+    s2 = 2.0 if tn_degenerate else None
+    affine = lambda bn: (bn.weight, bn.bias) if s2 is None else (bn.weight * s2, bn.bias * s2)
     dec = gen.decoder
     bc = dec.last_conv_boundary
     drop = layers_lib.mc_dropout
@@ -94,11 +106,11 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
     w1 = bc[0].weight  # [256, 304, 3, 3]
     y = _conv(x_up, w1[:, :256], 1) + _conv(ll_rep, w1[:, 256:], 1)
     mu1, var1 = batch_moments(y, (0, 2, 3))
-    y = torch.relu(normalize(y, mu1, var1, bc[1].weight, bc[1].bias))
+    y = torch.relu(normalize(y, mu1, var1, *affine(bc[1])))
     y = drop(y, 0.5, generator)
     y = _conv(y, bc[4].weight, 1)
     mu2, var2 = batch_moments(y, (0, 2, 3))
-    y = torch.relu(normalize(y, mu2, var2, bc[5].weight, bc[5].bias))
+    y = torch.relu(normalize(y, mu2, var2, *affine(bc[5])))
     y = drop(y, 0.1, generator)
     boundary = _conv(y, bc[8].weight, 0, bc[8].bias).contiguous(memory_format=_CL)
 
@@ -108,11 +120,41 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
     x1 = fused_mask_head_split(
         nhwc(x_up), nhwc(ll_rep), nhwc(boundary),
         torch.cat([m for m, _ in moments]), torch.cat([v for _, v in moments]),
-        mask_bn.weight, mask_bn.bias, mask_out.weight, mask_out.bias,
+        *affine(mask_bn), mask_out.weight, mask_out.bias,
         seed, rate=0.0 if layers_lib.dropout_impl() == "off" else 0.1,
     )
     mc = resize_bilinear_align_corners(nchw(x1), (H, W))
     return nhwc(mc).reshape(t_samples, b, H, W, -1)
+
+
+@torch.no_grad()
+def mc_dropout_forward(gen: DeepLab, image_t: torch.Tensor, t_samples: int, fast: bool,
+                       generator: torch.Generator | None, seed: int) -> torch.Tensor:
+    """T MC-dropout mask-logit samples of the NHWC target batch, [T, B, H,
+    W, 2], without gradients or running-stat writes (steps.py:234-301).
+
+    ``fast``: one train-mode backbone + prefix pass at batch B (``domains``
+    0 under TransNorm, its identical-halves mode; 1 under BN), then
+    :func:`mc_suffix` (K1 from ``seed``). Otherwise the reference's
+    structure: T/2 lanes, each a train-mode forward of the [T; T]-repeated
+    batch with ``domains=1`` through the model's own dropout sites (K3
+    under ``'pallas'``; lane i's sites draw from sub-stream
+    ``_MC_LANES + i`` of ``seed``), two samples per lane, the first T kept.
+    """
+    b, hw = image_t.shape[0], tuple(image_t.shape[1:3])
+    with frozen_stats(gen):
+        if fast:
+            dm = 0 if gen.norm == "tn" else 1
+            high, low = gen.features(nchw(image_t), True, dm)
+            fp, ll = gen.heads_prefix(high, low, True, dm)
+            return mc_suffix(gen, fp, ll, hw, b, t_samples, generator, seed,
+                             tn_degenerate=gen.norm == "tn")
+        x_rep = torch.cat([image_t, image_t], dim=0)
+        lanes = [gen(x_rep, True, 1, layers_lib.DropoutStream(
+            generator, stream_seed(seed, _MC_LANES + i))).mask_logits
+            for i in range(max(t_samples // 2, 1))]
+    mc = torch.stack(lanes)  # [lanes, 2B, H, W, 2]
+    return mc.reshape(-1, b, *mc.shape[2:])[:t_samples]
 
 
 def _split(outs: DeepLabOutputs, b: int):
@@ -147,25 +189,26 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     mean teacher. ``metrics`` holds detached
     0-d tensors (no host sync inside the step). The state's modules and
     optimizers update in place. ``proto_phase`` selects the prototype phase
-    of ``prototype_full``/``prototype_mt`` (their warmup otherwise); the
-    other methods ignore it.
+    of ``prototype``/``prototype_full``/``prototype_mt`` (their warmup
+    otherwise); the other methods ignore it.
     """
     mcfg = cfg.method
-    if cfg.model.norm != "bn":
-        raise NotImplementedError(f"norm {cfg.model.norm!r} is not ported yet")
     use_boundary_d, use_entropy_d = discriminators_used(cfg, method)
     if method == "posal":
         method = "adversarial"
     use_target = method != "baseline"
     use_adv = use_boundary_d or use_entropy_d
     use_proto = method in ("prototype_full", "prototype_mt") and proto_phase
+    use_bank = method == "prototype" and proto_phase
     use_mt_losses = method == "prototype_mt" and proto_phase
     use_cons = use_mt_losses and mcfg.use_trg_cons
     if use_cons and not mcfg.retrify_pseudo:
         raise ValueError("use_trg_cons requires retrify_pseudo=True: loss_aug is weighted "
                          "by gen_prototype_retrify's MC-std confidence masks")
-    if use_proto and mcfg.retrify_pseudo and not mcfg.mc_fast:
-        raise NotImplementedError("only the inlined MC-rectified prototype phase is ported")
+    # the MC pass rides on the main forward's target half only under BN with
+    # mc_fast; TransNorm and the slow pass run the standalone MC forward
+    use_mc = use_proto and mcfg.retrify_pseudo
+    mc_inline = use_mc and mcfg.mc_fast and cfg.model.norm == "bn"
     use_teacher = method == "mean_teacher"
     dt = cfg.model.dtype
 
@@ -191,13 +234,17 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             with torch.no_grad():
                 teacher_out = state.teacher(t_in, train=False)
 
+        mc = None
+        if use_mc and not mc_inline:
+            mc = mc_dropout_forward(gen, image_t, mcfg.mc_samples, mcfg.mc_fast, g,
+                                    step_seed).float()
+
         # ---- one forward of the batch ----
         high, low = gen.features(x_all, True, domains)
         fp_all, ll_all = gen.heads_prefix(high, low, True, domains)
         outs = gen.heads_suffix(fp_all, ll_all, hw, True, domains,
                                 layers_lib.DropoutStream(g, stream_seed(step_seed, _MAIN_FORWARD)))
-        mc = None
-        if use_proto and mcfg.retrify_pseudo:
+        if mc_inline:
             mc = mc_suffix(gen, fp_all[b:].detach(), ll_all[b:].detach(), hw, b,
                            mcfg.mc_samples, g, step_seed).float()
         out_s, out_t = _split(outs, b) if use_target else (outs, None)
@@ -252,6 +299,12 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                 src_reg = P.source_discriminative_loss(x_feat_s, pred_s, src)
                 loss = loss + mcfg.src_reg_weight * src_reg
                 metrics["loss_src_reg"] = src_reg
+
+        new_bank = None
+        if use_bank:
+            bank_loss, new_bank = _bank_losses(state, mcfg, out_s, out_t, map_s, boundary_s,
+                                               image_t, epoch, metrics)
+            loss = loss + mcfg.bank_loss_weight * bank_loss
 
         if use_cons:
             # augmented consistency on target (steps.py:881-926): pseudo-labels
@@ -308,6 +361,8 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             state.proto_trg = trg.stack().detach()
             state.proto_src_init = torch.ones_like(state.proto_src_init)
             state.proto_trg_init = torch.ones_like(state.proto_trg_init)
+        if use_bank:
+            state.proto_bank = new_bank
 
         # ---- teacher EMA after the student step; stats track the student's ----
         if use_teacher:
@@ -320,6 +375,63 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def _bank_losses(state: TrainState, mcfg, out_s, out_t, map_s, boundary_s, image_t, epoch,
+                 metrics):
+    """The disk-bank method's prototype phase (steps.py:779-879): per-image
+    +1-smoothed pools of source bu/cup/disc from the labels, target pools
+    under epoch-ramped thresholds of the (optionally distance-weighted)
+    'before' heads, from the frozen initial model with
+    ``pseudo_from_initial``. Returns (the sum of the pools' MSE distances,
+    the bank's EMA toward the target pools); writes the distances into
+    ``metrics``."""
+    feat_hw = tuple(out_s.x_feature.shape[1:3])
+    fg_eps = 1.0 if mcfg.bank_use_bu else 1e-16
+    pred_s = P.resize_nhwc(map_s, feat_hw)
+    bu_s = P.resize_nhwc(boundary_s, feat_hw)
+    xs_f = out_s.x_feature.float()
+    proto_x_bu = P.masked_pool_mean(out_s.x_bu_feature.float(), bu_s)
+    proto_x_cup = P.masked_pool_mean(xs_f, pred_s[..., 0:1], fg_eps)
+    proto_x_disc = P.masked_pool_mean(xs_f, pred_s[..., 1:2], fg_eps)
+
+    thr = P.adaptation_factor(epoch)
+    if mcfg.pseudo_from_initial:
+        # the frozen initial model in eval mode (its stats cannot drift)
+        with torch.no_grad():
+            heads = state.initial(image_t, train=False)
+    else:
+        heads = out_t
+    pred_t = torch.sigmoid(heads.mask_before.detach().float())
+    bu_soft = torch.sigmoid(heads.boundary_before.detach().float())
+    xt_f = out_t.x_feature.float()
+    bank = state.proto_bank
+
+    def rectified(soft, feat, key):
+        if mcfg.use_weight_rectify:
+            soft = soft * P.minmax_prototype_weight(
+                P.feat_prototype_distance(feat.detach(), bank[key]))
+        return (soft > thr).float()
+
+    proto_y = {"cup": P.masked_pool_mean(xt_f, rectified(pred_t[..., 0:1], xt_f, "cup"), fg_eps),
+               "disc": P.masked_pool_mean(xt_f, rectified(pred_t[..., 1:2], xt_f, "disc"),
+                                          fg_eps)}
+    dis_cup = torch.mean(torch.square(proto_x_cup - proto_y["cup"]))
+    dis_disc = torch.mean(torch.square(proto_x_disc - proto_y["disc"]))
+    bank_loss = dis_cup + dis_disc
+    if mcfg.bank_use_bu:
+        xt_bu = out_t.x_bu_feature.float()
+        proto_y["bu"] = P.masked_pool_mean(xt_bu, rectified(bu_soft, xt_bu, "bu"))
+        dis_bu = torch.mean(torch.square(proto_x_bu - proto_y["bu"]))
+        bank_loss = bank_loss + dis_bu
+        metrics["loss_bu"] = dis_bu
+    metrics["loss_cup"] = dis_cup
+    metrics["loss_disc"] = dis_disc
+    # without bu (the delete_en ablation) no target bu pool exists, so the
+    # bu vector never moves
+    new_bank = {k: P.bank_ema(v, proto_y[k], mcfg.bank_ema) if k in proto_y else v
+                for k, v in bank.items()}
+    return bank_loss, new_bank
 
 
 def make_eval_step(gen: DeepLab, dtype: torch.dtype = torch.float32):

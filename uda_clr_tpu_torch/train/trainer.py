@@ -10,11 +10,16 @@ the CSV and scalar rows are written. The host time blocked on the loaders
 is measured per epoch (``epoch_stats``), the evidence of whether the host
 feed sets the pace.
 
-Out of this slice, each raising ``NotImplementedError`` (ROADMAP.md):
-multi-process data parallelism, a mesh wider than one device, orbax
-checkpoints as ``initial_resume``, the disk-bank method's inputs
-(``pseudo_from_initial``, ``prototype_bank_path``) and ``save_val_images``.
-The train-time image grids (``viz_every``) are not written.
+The disk-bank method (``prototype``) reads its bank from
+``prototype_bank_path`` (the prototype-bank tool's ``.npz``, zeros without
+one); with ``pseudo_from_initial`` the generator is frozen as the initial
+model right after ``initial_resume``. Under TransNorm, validation's eval
+forward normalizes with the target running stats.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): the
+``bcdm`` method, multi-process data parallelism, a mesh wider than one
+device, orbax checkpoints as ``initial_resume``, ``save_val_images`` and
+``remat``. The train-time image grids (``viz_every``) are not written.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from uda_clr_tpu_torch.data.synthetic import SyntheticFundus
 from uda_clr_tpu_torch.data.transforms import eval_transforms, train_transforms
 from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
 from uda_clr_tpu_torch.train import optim as optim_lib
-from uda_clr_tpu_torch.train.state import create_train_state
+from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state
 from uda_clr_tpu_torch.train.steps import make_eval_step, make_train_step
 from uda_clr_tpu_torch.utils.logging import CsvLogger, ScalarWriter, StepTimer
 from uda_clr_tpu_torch.utils.metrics import dice_coeff_2label, pixel_acc
@@ -47,6 +52,8 @@ _ADVERSARIAL_METHODS = {"adversarial", "posal", "prototype", "prototype_full", "
 
 def _not_ported(cfg: Config) -> None:
     run, mcfg = cfg.run, cfg.method
+    if mcfg.method == "bcdm":
+        raise NotImplementedError("method 'bcdm' (make_bcdm_step) is not ported yet (ROADMAP A9)")
     if run.dist_coordinator or run.dist_num_processes > 1:
         raise NotImplementedError("multi-process data parallelism is not ported yet (ROADMAP A12)")
     if run.mesh_shape is not None and math.prod(run.mesh_shape) > 1:
@@ -56,14 +63,8 @@ def _not_ported(cfg: Config) -> None:
         raise NotImplementedError(
             "initial_resume reads .pth/.pth.tar files; orbax checkpoint directories "
             "are not readable by the port yet (ROADMAP A7)")
-    if mcfg.pseudo_from_initial or mcfg.prototype_bank_path:
-        raise NotImplementedError(
-            "pseudo_from_initial and prototype_bank_path belong to the disk-bank method, "
-            "not ported yet (ROADMAP A9)")
     if run.save_val_images:
         raise NotImplementedError("save_val_images is not ported yet (ROADMAP A7)")
-    if cfg.model.norm != "bn":
-        raise NotImplementedError(f"norm {cfg.model.norm!r} is not ported yet (ROADMAP A10)")
     if cfg.model.remat:
         raise NotImplementedError("remat is not ported yet (ROADMAP A11)")
 
@@ -107,8 +108,12 @@ class Trainer:
         self.loader_val = BatchLoader(self.ds_val, bs, shuffle=False, drop_last=False,
                                       num_workers=nw, backend=lb)
 
+        bank = None
+        if self.method == "prototype" and cfg.method.prototype_bank_path:
+            with np.load(cfg.method.prototype_bank_path) as f:  # trainer.py:157-161
+                bank = {k: f[k] for k in BANK_SIZES}
         self.state = create_train_state(cfg, seed=cfg.run.seed, device=self.device,
-                                        method=self.method)
+                                        method=self.method, proto_bank=bank)
         self._steps = {}  # proto_phase -> step
         self._eval_step = make_eval_step(self.state.gen, cfg.model.dtype)
 
@@ -128,6 +133,10 @@ class Trainer:
 
         if cfg.run.initial_resume:
             self._initial_resume(cfg.run.initial_resume)
+            if self.state.initial is not None:
+                # the generator after the initial resume becomes the frozen
+                # pseudo-label model (trainer.py:181-191)
+                self.state.initial.load_state_dict(self.state.gen.state_dict())
         if cfg.run.resume:
             self._resume(cfg.run.resume)
 
@@ -209,7 +218,8 @@ class Trainer:
         cfg = self.cfg
         past_warmup = self.epoch > cfg.method.warmup_epoch
         proto_phase = (self.method in ("prototype_full", "prototype_mt")
-                       and cfg.method.use_pid and past_warmup)
+                       and cfg.method.use_pid and past_warmup) or (
+            self.method == "prototype" and past_warmup)
         step = self._get_step(proto_phase)
         lr_gen = optim_lib.gen_lr_schedule(
             self.epoch, cfg.optim.lr_gen, cfg.optim.lr_step_epochs, cfg.optim.lr_decrease_rate)
