@@ -46,6 +46,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    median step beside the flagship's;
 7. runs ``baseline``, ``adversarial``, ``posal`` and ``mean_teacher`` for
    two full-width steps each under the default dropout backend;
+7b. holds each other backbone's DeepLab on the card to the CPU (an eval
+   forward at 64^2, float32, TF32 off), then drives the flagship
+   ``prototype_full`` at full width on ResNet-101 and Aligned Xception at
+   output stride 16, DRN-D-54 (output stride 8) and mobilenet at output
+   stride 8 (1 warmup + 3 prototype-phase steps, one K1 launch per
+   prototype-phase step); ResNet-101 without and with rematerialised
+   backbone blocks (peak memory, step time, and the gaps between their
+   first-step losses and backbone running stats); and the ``bcdm`` method
+   on mobilenet (1 + 2 steps) under the default dropout and under the fused
+   dropout kernel (K3 4 x 14 forward and 4 x 12 backward launches per
+   step), whose steps must move the second classifier and the backbone;
 8. decodes each wire key's 256 uint8 values on the card and requires them
    bitwise equal to numpy's decode;
 9. trains through the port's CLI in process (``uda_clr_tpu_torch.cli.main``):
@@ -64,6 +75,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    process): 2 epochs with warmup 0, then ``--resume`` for a third, which
    must start at the checkpoint's next epoch and iteration with the saved
    bank and generator (TransNorm buffers included);
+10b. trains ``--method bcdm --backbone drn`` through the CLI's
+   configuration at the same width: 2 epochs, then ``--resume`` for a
+   third, which must start at the checkpoint's next epoch and iteration
+   with the saved second classifier and the three Adam states;
 11. prints a ``kernels`` JSON line (each kernel's launches summed over every
    path driven above), the card's name and power limit, and as its last
    line ``{"ok": true, "device": {...}}``.
@@ -101,6 +116,14 @@ PROTO_STEPS = 5
 # forward, one backward launch per site the loss reaches (all 4), and the
 # augmented forward of prototype_mt (no backward with aug_backward off)
 K3_SITES_PER_FORWARD = 4
+# the backbones beside mobilenet OS16: (backbone, output stride); drn is
+# always OS8. Each full-width path runs 1 warmup + BACKBONE_STEPS prototype
+# steps
+BACKBONE_CASES = (("resnet", 16), ("xception", 16), ("drn", 8), ("mobilenet", 8))
+BACKBONE_STEPS = 3
+# bcdm's head forwards per step (A 2, B 2 dead + 2, C 4 x 2) and those the
+# backward reaches (all but B's dead two)
+BCDM_HEAD_FORWARDS, BCDM_HEAD_BACKWARDS = 14, 12
 # the Trainer phase: the CLI's flags for the flagship at full width
 TRAINER_FLAGS = ["--synthetic", "--image-size", "512", "--batch-size", "8", "--bf16",
                  "--wire", "u8", "--warmup-epoch", "0", "--interval-validate", "1"]
@@ -375,15 +398,18 @@ def counts(mh, K3):
 
 def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: str = "",
                    steps: int = PROTO_STEPS, warmup: bool = True, configure=None,
-                   proto_bank=None, keys=None, banks_move: bool = True):
+                   proto_bank=None, keys=None, banks_move: bool = True, info=None):
     """1 warmup (unless ``warmup`` is False) + ``steps`` prototype-phase
     steps of ``method`` at full width (``configure(cfg)`` edits the
     configuration; ``proto_bank`` seeds the disk bank of ``prototype``);
     the counts are set to 0 just before and checked after every step
     against ``per_step`` (launches per warmup / prototype-phase step), the
     metrics' names against ``keys`` when given, and the banks must move
-    every step (unless ``banks_move`` is False: then it is only said). Returns the path's launch counts and the median step ms
-    (over steps 1 on: step 0 carries first-call costs)."""
+    every step (unless ``banks_move`` is False: then it is only said).
+    Returns the path's launch counts and the median step ms (over steps 1
+    on: step 0 carries first-call costs); fills ``info`` (a dict) with the
+    peak GiB, img/s, the warmup step's ms and metrics and the generator's
+    backbone running stats after it."""
     Config, create_train_state, make_train_step, _ = ports
     name = name or method
     cfg = full_width_cfg(Config)
@@ -409,6 +435,10 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
             expect[k] += n
         check_counts(mh, K3, expect, f"{name} warmup step")
         say(f"{name} warmup step: {warm_ms:.1f} ms (first step), {fmt(m)}")
+        if info is not None:
+            info.update(warm_ms=warm_ms, warm_metrics={k: float(v) for k, v in m.items()},
+                        backbone_stats={k: v.clone() for k, v in
+                                        state.gen.backbone.named_buffers()})
 
     banks, step_ms = [], []
     for i in range(steps):
@@ -444,20 +474,199 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
     say(f"{name} prototype step: median {med:.2f} ms over steps 1-{steps - 1}, "
         f"{b / (med / 1e3):.2f} img/s (source images per second), "
         f"peak memory {peak_gib:.2f} GiB, launches {launches}")
+    if info is not None:
+        info.update(peak_gib=peak_gib, img_per_s=b / (med / 1e3), ms=med)
     del state, batch
     torch.cuda.empty_cache()
     return launches, med
+
+
+def backbone_card_phase(torch, np, DeepLab):
+    """Each backbone's DeepLab on the card against the same weights on the
+    CPU: an eval-mode forward at 64^2, B=2, float32 (TF32 off for matmul
+    and cuDNN), with random norm affine and running stats; every output
+    within 1e-4 of its largest CPU entry (cuDNN and the CPU sum the
+    convolutions in other orders; the CPU and JAX agree to <= 1e-5 there,
+    tests/test_torch_backbone_*.py)."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 64, 64, 3))
+                         .astype(np.float32))
+    for backbone, output_stride in BACKBONE_CASES:
+        gen = DeepLab(backbone=backbone, output_stride=output_stride, seed=0)
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, t in gen.named_parameters():
+                if t.dim() == 1 and name.endswith("weight"):  # norm scales
+                    t.copy_(1.0 + 0.1 * torch.randn(t.shape, generator=g))
+            for name, t in gen.named_buffers():
+                t.copy_(0.1 * torch.randn(t.shape, generator=g) if "mean" in name
+                        else 0.5 + torch.rand(t.shape, generator=g))
+            want = gen(x, False)
+            gen.cuda().to(memory_format=torch.channels_last)
+            got = gen(x.cuda(), False)
+        torch.cuda.synchronize()
+        errs = {n: float((a.cpu() - b).abs().max() / b.abs().max())
+                for n, a, b in zip(got._fields, got, want)}
+        worst = max(errs, key=errs.get)
+        say(f"{backbone} OS{gen.output_stride} eval forward at 64^2, card vs cpu (float32, TF32 "
+            f"off): largest difference {errs[worst]:.2e} of the largest entry, at {worst} "
+            f"(tolerance 1e-4)")
+        if not errs[worst] <= 1e-4:
+            fail(f"{backbone}: the eval forward disagrees between the card and the CPU")
+        del gen, want, got
+    torch.cuda.empty_cache()
+
+
+def remat_phase(torch, np, ports, mh, K3) -> dict:
+    """``prototype_full`` on resnet, OS16, without and with rematerialised
+    backbone blocks, from the same seed and batch: peak memory and step
+    time of both, the gap between their warmup losses and between their
+    backbone running stats after that one step (a second EMA in the
+    backward's recompute would move them by ~10%). Returns the launch
+    counts of both runs."""
+    runs = {}
+    for remat in (False, True):
+        info = {}
+
+        def configure(c, remat=remat):
+            c.model.backbone = "resnet"
+            c.model.remat = remat
+
+        launches, _ = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
+            "warmup": {}, "proto": {"k1": 1}}, name=f"prototype_full resnet remat={remat}",
+            steps=BACKBONE_STEPS, configure=configure, info=info)
+        runs[remat] = (launches, info)
+    (l0, a), (l1, b) = runs[False], runs[True]
+    loss_gap = max(abs(a["warm_metrics"][k] - b["warm_metrics"][k])
+                   / max(abs(a["warm_metrics"][k]), 1e-12) for k in a["warm_metrics"])
+    stats_gap = max(float((a["backbone_stats"][k] - v).abs().max()
+                          / v.abs().max().clamp_min(1e-12))
+                    for k, v in b["backbone_stats"].items())
+    say(f"remat on resnet prototype_full: peak {a['peak_gib']:.2f} -> {b['peak_gib']:.2f} GiB "
+        f"({b['peak_gib'] / a['peak_gib']:.3f}x), step {a['ms']:.2f} -> {b['ms']:.2f} ms "
+        f"({b['ms'] / a['ms']:.3f}x); warmup-step losses apart by {loss_gap:.2e} (relative), "
+        f"backbone running stats after it by {stats_gap:.2e} of the largest entry "
+        f"(tolerance 1e-3 each)")
+    if not (loss_gap <= 1e-3 and stats_gap <= 1e-3):
+        fail("remat: the first step's losses or backbone running stats differ from "
+             "the plain model's")
+    return {k: l0[k] + l1[k] for k in l0}
+
+
+def bcdm_phase(torch, np, ports, mh, K3, impl: str) -> tuple[dict, float]:
+    """``bcdm`` on mobilenet at full width under the dropout backend
+    ``impl``: 1 + 2 steps, each with its K3 launches asserted (under
+    'pallas' 4 sites x 14 head forwards and 4 x 12 backward: phase A's two
+    heads, B's two dead and two live ones, C's 4 x 2; none under 'xla16')
+    and finite losses; the steps must move the second classifier and the
+    backbone. Returns the launch counts and the median step ms of steps
+    1-2."""
+    Config, create_train_state, make_train_step, layers = ports
+    cfg = full_width_cfg(Config)
+    batch = full_width_batch(torch, np)
+    per_step = {"k1": 0, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
+    if impl == "pallas":
+        per_step.update(k3_fwd=K3_SITES_PER_FORWARD * BCDM_HEAD_FORWARDS,
+                        k3_bwd=K3_SITES_PER_FORWARD * BCDM_HEAD_BACKWARDS)
+    layers.set_dropout_impl(impl)
+    try:
+        state = create_train_state(cfg, seed=0, device="cuda", method="bcdm")
+        step = make_train_step(cfg, "bcdm")
+        cls2 = {k: v.clone() for k, v in state.cls2.state_dict().items()}
+        stem = state.gen.backbone.features[0][0].weight.detach().clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(mh, K3)
+        step_ms = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            state, m = step(state, batch, 1e-3, 2.5e-5)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_metrics(m, f"bcdm {impl} step {i}")
+            if set(m) != {"loss_seg", "loss_cdd_before", "loss_cdd_after", "loss_all"}:
+                fail(f"bcdm: metrics {sorted(m)}")
+            check_counts(mh, K3, {k: (i + 1) * n for k, n in per_step.items()},
+                         f"bcdm {impl} step {i}")
+            say(f"bcdm {impl} step {i}: {step_ms[-1]:.1f} ms, {fmt(m)}")
+        launches = counts(mh, K3)
+    finally:
+        layers.set_dropout_impl("xla16")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if all(torch.equal(v, state.cls2.state_dict()[k]) for k, v in cls2.items()) or \
+            torch.equal(stem, state.gen.backbone.features[0][0].weight):
+        fail(f"bcdm {impl}: the steps left the second classifier or the backbone unchanged")
+    steps = {name: {int(s["step"]) for s in opt.state.values()}
+             for name, opt in state.bcdm_opt.items()}
+    if steps != {"fea": {15}, "cls1": {6}, "cls2": {6}}:
+        fail(f"bcdm {impl}: Adam step counts {steps}, expected fea 15, cls1 6, cls2 6")
+    med = statistics.median(step_ms[1:])
+    say(f"bcdm {impl} step: median {med:.2f} ms over steps 1-2, {8 / (med / 1e3):.2f} img/s "
+        f"(source images per second), peak memory {peak:.2f} GiB, launches {launches}; "
+        f"Adam steps fea 15, cls1 6, cls2 6; cls2 and the backbone moved")
+    del state, batch
+    torch.cuda.empty_cache()
+    return launches, med
+
+
+def bcdm_trainer_phase(torch, trainer_ports, mh, K3) -> dict:
+    """``--method bcdm --backbone drn`` through the port's CLI at full
+    width: 2 epochs, then ``--resume`` for a third, which must start at the
+    checkpoint's next epoch and iteration with the saved second classifier
+    and Adam states (step counts fea 5, cls1 2, cls2 2 per iteration).
+    Returns the launch counts (none: no kernel is on this path under the
+    default dropout)."""
+    cli, _, headers, _ = trainer_ports
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bcdm_")
+    total = {k: 0 for k in counts(mh, K3)}
+    try:
+        cfg = cli.build_config(TRAINER_FLAGS + ["--max-epoch", "2", "--method", "bcdm",
+                                                "--backbone", "drn"])
+        cfg.run.checkpoint_every = 1
+        cls2 = lambda state: state.cls2.state_dict()
+
+        def adam_steps(trainer):
+            return {name: {int(s["step"]) for s in opt.state.values()}
+                    for name, opt in trainer.state.bcdm_opt.items()}
+
+        first, _, _ = cli_run(torch, trainer_ports, mh, K3, cfg, tmp, "bcdm trainer", "first",
+                              cls2, total)
+        # bcdm logs loss_seg alone of the CSV's train columns
+        check_run(first, os.path.join(tmp, "first"), headers, 0, [0, 1], "bcdm trainer first",
+                  columns=(2,))
+        if first.state.gen.output_stride != 8 or adam_steps(first) != {
+                "fea": {20}, "cls1": {8}, "cls2": {8}}:
+            fail(f"bcdm trainer first: OS {first.state.gen.output_stride}, Adam steps "
+                 f"{adam_steps(first)}")
+        cfg.run.max_epoch = 3
+        second, loaded, start = cli_run(torch, trainer_ports, mh, K3, cfg, tmp, "bcdm trainer",
+                                        "resumed", cls2, total, "--resume",
+                                        os.path.join(tmp, "first", "checkpoints"))
+        if start != (2, first.iteration) or [s["epoch"] for s in second.epoch_stats] != [2]:
+            fail(f"bcdm trainer resumed: started at (epoch, iteration) {start}, expected "
+                 f"(2, {first.iteration})")
+        for k, v in first.state.cls2.state_dict().items():
+            if not torch.equal(loaded[k], v):
+                fail(f"bcdm trainer resumed: the loaded second classifier's {k} differs")
+        if adam_steps(second) != {"fea": {30}, "cls1": {12}, "cls2": {12}}:
+            fail(f"bcdm trainer resumed: Adam steps {adam_steps(second)}")
+        say(f"bcdm trainer resumed: started at epoch 2, iteration {first.iteration + 1}, with the "
+            f"saved second classifier and Adam states (fea 20, cls1 8, cls2 8 -> 30, 12, 12)")
+        del first, second
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
 
 
 def bank_tool_phase(torch, np, bank_ports):
     """The prototype-bank tool's ``compute_prototypes`` with a TransNorm
     generator (seed 0) on the card: at 64^2 on 2 synthetic images against
     the same weights on the CPU, then over 16 synthetic 512^2 target images
-    (the bank the full-width disk-bank paths start from). The generator's
-    running stats are first set from one train-mode S||T forward (momentum
-    1), as a trained generator's would be: at their init values every
-    TransNorm layer of the eval forward doubles its output, and the
-    thresholded pools flip with the float noise."""
+    (the bank the full-width disk-bank paths start from). Before each, the
+    generator's running stats are set from one train-mode S||T forward at
+    that size (momentum 1), as a trained generator's would be: at their
+    init values every TransNorm layer of the eval forward doubles its
+    output, and the thresholded pools flip with the float noise."""
     compute_prototypes, DeepLab, DomainNorm2d, SyntheticFundus, eval_transforms, BatchLoader = \
         bank_ports
     gen = DeepLab(norm="tn", seed=0)
@@ -466,15 +675,22 @@ def bank_tool_phase(torch, np, bank_ports):
         ds = SyntheticFundus(n, size + 28, seed=seed, transform=eval_transforms(size))
         return BatchLoader(ds, 8, shuffle=False, drop_last=False, num_workers=2).epoch(0)
 
-    small = list(batches(2, 64))
     norms = [m for m in gen.modules() if isinstance(m, DomainNorm2d)]
-    for m in norms:
-        m.momentum = 1.0
-    with torch.no_grad():
-        gen(torch.from_numpy(np.concatenate([list(batches(2, 64, seed=1))[0]["image"],
-                                             small[0]["image"]])), train=True, domains=2)
-    for m in norms:
-        m.momentum = 0.1
+
+    def set_running_stats(size):
+        """The running stats from one train-mode S||T forward of 2 + 2
+        images at ``size`` (momentum 1), on the generator's device."""
+        device = next(gen.parameters()).device
+        x = np.concatenate([next(iter(batches(2, size, seed=seed)))["image"] for seed in (1, 2)])
+        for m in norms:
+            m.momentum = 1.0
+        with torch.no_grad():
+            gen(torch.from_numpy(x).to(device), train=True, domains=2)
+        for m in norms:
+            m.momentum = 0.1
+
+    small = list(batches(2, 64))
+    set_running_stats(64)
     want = compute_prototypes(gen, small)
     # the pools' own sensitivity: a 1e-6 relative change of the input
     nudged = compute_prototypes(gen, [{"image": b["image"] * np.float32(1 + 1e-6)}
@@ -491,6 +707,10 @@ def bank_tool_phase(torch, np, bank_ports):
             f"(tolerance {tol:.2e}, ten times that)")
         if not err <= tol:
             fail(f"bank tool: {k} disagrees between the card and the CPU")
+    # at 512^2 with the stats of 64^2 the eval logits are ~1e2 and nearly
+    # constant over an image, so whether any cup pixel passes its threshold
+    # flips with the float noise (on an H100 no cup pixel passed at all)
+    set_running_stats(512)
     t0 = time.perf_counter()
     bank = compute_prototypes(gen, batches(16, 512))
     seconds = time.perf_counter() - t0
@@ -552,9 +772,12 @@ def wire_phase(torch, np, wire):
         f"for {len(WIRE_KEYS)} keys")
 
 
-def check_run(trainer, out: str, headers, first_iteration: int, epochs: list, where: str):
-    """log.csv of a CLI run: the 12-column header, one finite row per step
-    (consecutive iterations from ``first_iteration``) and per validation."""
+def check_run(trainer, out: str, headers, first_iteration: int, epochs: list, where: str,
+              columns=(2, 5, 6, 7)):
+    """log.csv of a CLI run: the 12-column header, one row per step
+    (consecutive iterations from ``first_iteration``) finite in
+    ``columns`` (loss_seg, loss_adv, loss_D, loss_D2 by default), and one
+    finite row per validation."""
     with open(os.path.join(out, "log.csv")) as f:
         rows = list(csv.reader(f))
     if rows[0] != headers or len(headers) != 12:
@@ -567,7 +790,7 @@ def check_run(trainer, out: str, headers, first_iteration: int, epochs: list, wh
     if [int(r[0]) for r in valid] != epochs or [s["epoch"] for s in trainer.epoch_stats] != epochs:
         fail(f"{where}: validation rows for epochs {[r[0] for r in valid]}, want {epochs}")
     for r in train:
-        if len(r) != 12 or not all(math.isfinite(float(r[i])) for i in (2, 5, 6, 7)):
+        if len(r) != 12 or not all(math.isfinite(float(r[i])) for i in columns):
             fail(f"{where}: train row {r} is not finite")
     for r in valid:
         if len(r) != 13 or not all(math.isfinite(float(r[i])) for i in (8, 9, 10)):
@@ -641,6 +864,43 @@ def trainer_phase(torch, trainer_ports, mh, K3, direct_ms: float) -> dict:
     return {k: c1[k] + c2[k] for k in c1}
 
 
+def cli_run(torch, trainer_ports, mh, K3, cfg, tmp: str, where: str, name: str, snapshot,
+            total: dict, *extra):
+    """One training run of the port's CLI on the card: ``cfg`` written as
+    YAML and read back through ``--config`` with the flags ``extra``, the
+    Trainer built with its output in ``tmp/name``, ``snapshot(state)``
+    cloned and the (epoch, iteration) it starts at taken before it trains.
+    Prints each epoch's wall time, img/s, peak memory and loader wait, adds
+    the launches to ``total``, and fails on any: these runs use the default
+    dropout and no MC pass, so no kernel runs. Returns (trainer, snapshot,
+    start)."""
+    cli, _, _, Trainer = trainer_ports
+    path = os.path.join(tmp, name + ".yaml")
+    with open(path, "w") as f:
+        f.write(cfg.to_yaml())
+    reset_counts(mh, K3)
+    t0 = time.perf_counter()
+    trainer = Trainer(cli.build_config(["--config", path, "--out", os.path.join(tmp, name),
+                                        *extra]), "cuda")
+    before = {k: v.clone() for k, v in snapshot(trainer.state).items()}
+    start = (trainer.epoch, trainer.iteration)
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = counts(mh, K3)
+    for k in total:
+        total[k] += launches[k]
+    for s in trainer.epoch_stats:
+        phase = " (prototype phase)" if s["proto_phase"] else ""
+        say(f"{where} {name} epoch {s['epoch']}{phase}: wall {s['seconds']:.3f} s for "
+            f"{s['steps']} steps, {s['img_per_s']:.2f} img/s, peak memory "
+            f"{s['peak_gib']:.2f} GiB, loader wait "
+            f"{1e3 * s['loader_wait_s'] / s['steps']:.1f} ms/step")
+    say(f"{where} {name}: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    if any(launches.values()):
+        fail(f"{where} {name}: kernel launches {launches}, expected none")
+    return trainer, before, start
+
+
 def bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3) -> dict:
     """``--method prototype --use_TN`` through the port's CLI at full width,
     its bank from ``python -m uda_clr_tpu_torch.tools.cal_prototype
@@ -648,7 +908,7 @@ def bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3) -> dict:
     in the prototype phase), then ``--resume`` for a third; the resumed run
     must start at the checkpoint's next epoch and iteration with the bank
     it saved. Returns the launch counts of the training runs."""
-    cli, ckpt_lib, headers, Trainer = trainer_ports
+    cli, _, headers, _ = trainer_ports
     tmp = tempfile.mkdtemp(prefix="chip_smoke_bank_")
     total = {k: 0 for k in counts(mh, K3)}
     try:
@@ -661,35 +921,13 @@ def bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3) -> dict:
                                                 "--use_TN"])
         cfg.run.checkpoint_every = 1
         cfg.method.prototype_bank_path = bank_path
-        path = os.path.join(tmp, "bank.yaml")
-        with open(path, "w") as f:
-            f.write(cfg.to_yaml())
 
-        def run(name, *extra):
-            reset_counts(mh, K3)
-            t0 = time.perf_counter()
-            trainer = Trainer(cli.build_config(["--config", path, "--out",
-                                                os.path.join(tmp, name), *extra]), "cuda")
-            before = {k: v.clone() for k, v in trainer.state.proto_bank.items()}
-            before.update({f"gen.{k}": v.clone() for k, v in trainer.state.gen.state_dict().items()})
-            start = (trainer.epoch, trainer.iteration)
-            trainer.train()
-            torch.cuda.synchronize()
-            launches = counts(mh, K3)
-            for k in total:
-                total[k] += launches[k]
-            for s in trainer.epoch_stats:
-                phase = "prototype phase" if s["proto_phase"] else "warmup"
-                say(f"bank trainer {name} epoch {s['epoch']} ({phase}): wall {s['seconds']:.3f} s "
-                    f"for {s['steps']} steps, {s['img_per_s']:.2f} img/s, peak memory "
-                    f"{s['peak_gib']:.2f} GiB, loader wait "
-                    f"{1e3 * s['loader_wait_s'] / s['steps']:.1f} ms/step")
-            say(f"bank trainer {name}: {time.perf_counter() - t0:.1f} s; launches {launches}")
-            if any(launches.values()):  # 'xla16' dropout, no MC pass: no kernel runs
-                fail(f"bank trainer {name}: kernel launches {launches}, expected none")
-            return trainer, before, start
+        def snapshot(state):  # the bank and the generator, TransNorm buffers included
+            return {**state.proto_bank,
+                    **{f"gen.{k}": v for k, v in state.gen.state_dict().items()}}
 
-        first, bank0, _ = run("first")
+        first, bank0, _ = cli_run(torch, trainer_ports, mh, K3, cfg, tmp, "bank trainer",
+                                  "first", snapshot, total)
         check_run(first, os.path.join(tmp, "first"), headers, 0, [0, 1], "bank trainer first")
         if [s["proto_phase"] for s in first.epoch_stats] != [False, True]:
             fail(f"bank trainer first: phases {[s['proto_phase'] for s in first.epoch_stats]}")
@@ -699,11 +937,10 @@ def bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3) -> dict:
                     fail(f"bank trainer first: the bank {k!r} is not the tool's")
                 if torch.equal(first.state.proto_bank[k].cpu(), bank0[k].cpu()):
                     fail(f"bank trainer first: the prototype phase left the bank {k!r} as it was")
-        ckpt_dir = os.path.join(tmp, "first", "checkpoints")
         cfg.run.max_epoch = 3
-        with open(path, "w") as f:
-            f.write(cfg.to_yaml())
-        second, bank1, start = run("resumed", "--resume", ckpt_dir)
+        second, bank1, start = cli_run(torch, trainer_ports, mh, K3, cfg, tmp, "bank trainer",
+                                       "resumed", snapshot, total, "--resume",
+                                       os.path.join(tmp, "first", "checkpoints"))
         if start != (2, first.iteration) or [s["epoch"] for s in second.epoch_stats] != [2]:
             fail(f"bank trainer resumed: started at (epoch, iteration) {start}, expected "
                  f"(2, {first.iteration})")
@@ -842,12 +1079,37 @@ def main() -> None:
         f"({slow_ms / flagship_ms:.3f}x); prototype tn under 'pallas' {bank_ms:.2f} "
         f"({bank_ms / flagship_ms:.3f}x)")
     other_methods_phase(torch, np, ports, mh, K3)
+
+    # the other backbones and output stride 8: the flagship at full width,
+    # K1 once per prototype-phase step whatever the backbone
+    backbone_card_phase(torch, np, DeepLab)
+    backbone_paths, backbone_ms = [], {}
+    for backbone, output_stride in BACKBONE_CASES:
+        def on(c, backbone=backbone, output_stride=output_stride):
+            c.model.backbone, c.model.output_stride = backbone, output_stride
+
+        launches, backbone_ms[backbone, output_stride] = prototype_path(
+            torch, np, ports, mh, K3, "prototype_full", {"warmup": {}, "proto": {"k1": 1}},
+            name=f"prototype_full {backbone} OS{output_stride}", steps=BACKBONE_STEPS,
+            configure=on)
+        backbone_paths.append(launches)
+    remat = remat_phase(torch, np, ports, mh, K3)
+    bcdm, bcdm_ms = bcdm_phase(torch, np, ports, mh, K3, "xla16")
+    bcdm_k3, bcdm_k3_ms = bcdm_phase(torch, np, ports, mh, K3, "pallas")
+    say("steps in this run (median ms, x the mobilenet OS16 flagship's "
+        f"{flagship_ms:.2f}): " + ", ".join(
+            f"{b} OS{o} {ms:.2f} ({ms / flagship_ms:.3f}x)" for (b, o), ms in backbone_ms.items())
+        + f"; bcdm {bcdm_ms:.2f} ({bcdm_ms / flagship_ms:.3f}x), under 'pallas' "
+        f"{bcdm_k3_ms:.2f} ({bcdm_k3_ms / flagship_ms:.3f}x)")
+
     wire_phase(torch, np, wire)
     trainer_ports = (cli, ckpt_lib, LOG_HEADERS, Trainer)
     trainer = trainer_phase(torch, trainer_ports, mh, K3, flagship_ms)
     bank_trainer = bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3)
+    bcdm_trainer = bcdm_trainer_phase(torch, trainer_ports, mh, K3)
     # each kernel's launches over every path this run drove
-    paths = (flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, trainer, bank_trainer)
+    paths = (flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, *backbone_paths, remat,
+             bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer)
     launched = {k: sum(p[k] for p in paths) for k in flagship}
     say(f"launches over the paths: {launched}")
 

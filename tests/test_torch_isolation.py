@@ -4,7 +4,7 @@ module of the JAX package, and needs none of Pillow, PyYAML, cv2, orbax or
 tensorboard, which a CUDA machine may lack: a fresh interpreter that
 refuses to import those imports every port module and chip_smoke.py, runs
 one ``train_transforms(64, wire="u8")`` sample and ``build_config([])``, and
-builds a TransNorm model.
+builds a TransNorm model and a model on each of the other three backbones.
 Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
@@ -48,6 +48,10 @@ from uda_clr_tpu_torch.models.deeplab import DeepLab
 from uda_clr_tpu_torch.tools.cal_prototype import compute_prototypes
 tn = DeepLab(norm='tn')
 assert 'backbone.features.0.1.running_var_target' in tn.state_dict()
+for backbone, key in (('resnet', 'backbone.layer4.2.bn3.running_var'),
+                      ('xception', 'backbone.block20.rep.8.running_var'),
+                      ('drn', 'backbone.layer8.1.running_var')):
+    assert key in DeepLab(backbone=backbone).state_dict()
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.')
              or m == 'flax' or m.startswith('flax.')
@@ -64,7 +68,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, bad = (proc.stdout.splitlines() + ["", ""])[:2]
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 45
+    assert int(count) == len(modules) + 1 >= 48
     assert bad == "", f"the port loaded: {bad}"
 
 

@@ -234,10 +234,8 @@ def test_other_methods_train_an_epoch(method, keys, tmp_path):
     (lambda c: setattr(c.run, "dist_coordinator", "localhost:1234"), "A12"),
     (lambda c: setattr(c.run, "mesh_shape", (2,)), "A12"),
     (lambda c: setattr(c.run, "initial_resume", "runs/x/checkpoints/checkpoint_3"), "orbax"),
-    (lambda c: setattr(c.method, "method", "bcdm"), "A9"),
     (lambda c: setattr(c.run, "dist_num_processes", 2), "A12"),
     (lambda c: setattr(c.run, "save_val_images", True), "save_val_images"),
-    (lambda c: setattr(c.model, "remat", True), "A11"),
 ])
 def test_out_of_slice_options_raise(change, match, tmp_path):
     cfg = _small_cfg(1)
@@ -245,6 +243,27 @@ def test_out_of_slice_options_raise(change, match, tmp_path):
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change, keys", [
+    (lambda c: setattr(c.method, "method", "bcdm"),
+     {"loss_seg", "loss_cdd_before", "loss_cdd_after", "loss_all"}),
+    (lambda c: setattr(c.model, "remat", True),
+     {"loss_seg", "loss_adv", "loss_all", "loss_D", "loss_D2"}),
+])
+def test_bcdm_and_remat_train_a_step(change, keys, tmp_path):
+    """Two options the Trainer once refused: it builds and runs one CPU
+    step with each (the flagship's warmup under ``remat``)."""
+    cfg = _small_cfg(1)
+    cfg.run.out_dir = str(tmp_path)
+    change(cfg)
+    trainer = Trainer(cfg, device="cpu")
+    try:
+        means = trainer.train_epoch()
+    finally:
+        trainer.close()
+    assert set(means) == keys and all(math.isfinite(v) for v in means.values())
+    assert trainer.state.step == 1
 
 
 def test_trainer_raises_without_cuda_when_asked_for_it(tmp_path):

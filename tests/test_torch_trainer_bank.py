@@ -152,10 +152,23 @@ def test_initial_model_is_the_generator_after_initial_resume(tmp_path):
 
 
 def test_bcdm_still_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_train_step(Config(), "bcdm")
-    with pytest.raises(NotImplementedError, match="A9"):
-        create_train_state(Config(), device="cpu", method="bcdm")
+    """``bcdm`` once raised here (ROADMAP A2): now its step builds, and
+    its state holds the second classifier (ASPP + decoder, seeded apart
+    from the generator's heads) and three Adam optimizers over the
+    backbone, the first and the second classifier in place of
+    ``gen_opt``."""
+    assert callable(make_train_step(Config(), "bcdm"))
+    state = create_train_state(Config(), device="cpu", method="bcdm")
+    assert state.gen_opt is None and set(state.bcdm_opt) == {"fea", "cls1", "cls2"}
+    groups = {name: {id(p) for g in opt.param_groups for p in g["params"]}
+              for name, opt in state.bcdm_opt.items()}
+    assert groups["fea"] == {id(p) for p in state.gen.backbone.parameters()}
+    assert groups["cls1"] == {id(p) for m in (state.gen.aspp, state.gen.decoder)
+                              for p in m.parameters()}
+    assert groups["cls2"] == {id(p) for p in state.cls2.parameters()}
+    heads1, heads2 = state.gen.state_dict(), state.cls2.state_dict()
+    assert set(heads2) == {k for k in heads1 if not k.startswith("backbone.")}
+    assert not torch.equal(heads1["aspp.conv1.weight"], heads2["aspp.conv1.weight"])
 
 
 def _with(cfg: Config, **run) -> Config:

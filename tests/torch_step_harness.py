@@ -32,8 +32,9 @@ from uda_clr_tpu.models.deeplab import DeepLab as JaxDeepLab
 from uda_clr_tpu.train.state import create_train_state as jax_create_train_state
 from uda_clr_tpu.train.steps import make_train_step as jax_make_train_step
 from uda_clr_tpu_torch.config import Config
-from uda_clr_tpu_torch.convert.from_jax import train_state_dicts
+from uda_clr_tpu_torch.convert.from_jax import deeplab_state_dict, train_state_dicts
 from uda_clr_tpu_torch.models import layers as port_layers
+from uda_clr_tpu_torch.models.deeplab import DeepLab
 from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state
 from uda_clr_tpu_torch.train.steps import make_train_step
 
@@ -147,12 +148,13 @@ def jax_aug_draws(jstate, b: int) -> np.ndarray:
 
 
 def run_steps(method: str, phases, configure=None, monkeypatch=None, norm: str = "bn",
-              prepare=None):
+              prepare=None, each=None):
     """Run ``len(phases)`` iterations of ``method`` (``phases`` = the
     proto_phase flag of each) in both frameworks under ``norm``.
     ``configure(mcfg)`` edits both method configs; ``prepare(jstate)``
     returns the JAX state to start from (the port's is carried over from
-    it). With ``monkeypatch`` the port's augmentation takes the JAX step's
+    it); ``each(iteration, jstate, state)`` is called after each iteration.
+    With ``monkeypatch`` the port's augmentation takes the JAX step's
     draws. Returns (jstate, state, [(got, want) per iter])."""
     jcfg = JaxConfig()
     jcfg.model.compute_dtype = "float32"
@@ -168,7 +170,8 @@ def run_steps(method: str, phases, configure=None, monkeypatch=None, norm: str =
     teacher = method == "mean_teacher"
     model = JaxDeepLab(num_classes=2, backbone="mobilenet", output_stride=16, norm=norm)
     jstate = jax_train_state(model, with_teacher=teacher,
-                             with_proto_bank=method == "prototype")
+                             with_proto_bank=method == "prototype",
+                             with_cls2=method == "bcdm")
     params = to_np(jstate.gen_params)
     params["decoder"]["mask_out"]["conv"]["kernel"] *= 10.0
     gp = jax.tree.map(jnp.asarray, params)
@@ -198,6 +201,8 @@ def run_steps(method: str, phases, configure=None, monkeypatch=None, norm: str =
                                        LR_GEN, LR_DIS, EPOCH)
         want = {k: float(v) for k, v in want.items() if not k.startswith("_")}
         history.append(({k: v.item() for k, v in got.items()}, want))
+        if each is not None:
+            each(len(history) - 1, jstate, state)
     assert state.step == int(jstate.step) == len(phases)
     return jstate, state, history
 
@@ -220,13 +225,17 @@ def close(got, want, rtol, what):
     assert err <= rtol, f"{what}: max diff {err:.2e} of the largest entry > {rtol}"
 
 
-def _check_model(sd, params, stats, what, stats_rtol=STATS_RTOL):
-    for key, path in G_PARAMS:
+def check_model(sd, params, stats, what, stats_rtol=STATS_RTOL, param_keys=G_PARAMS,
+                stats_keys=BN_STATS):
+    """The params at ``param_keys`` (relative to their largest entry, and by
+    their median difference in units of lr) and the running stats at
+    ``stats_keys`` of the state_dict ``sd`` against the JAX trees."""
+    for key, path in param_keys:
         want = np.asarray(get(params, path)).transpose(3, 2, 0, 1)
         close(sd[key].numpy(), want, PARAM_RTOL, f"{what} {key}")
         median = np.median(np.abs(sd[key].numpy() - want)) / LR_GEN
         assert median <= PARAM_MEDIAN_LR, f"{what} {key}: median diff {median:.3f} lr"
-    for key, path in BN_STATS:
+    for key, path in stats_keys:
         node = get(stats, path)
         # plain BN's mean/var, or TransNorm's four per-domain buffers
         names = ("mean", "var") if "mean" in node else (
@@ -241,11 +250,11 @@ def check_params(jstate, state, discriminators: tuple, stats_rtol=STATS_RTOL):
     """G params and BN running stats (within ``stats_rtol``), the mean
     teacher's if there is one, and the discriminators: ``discriminators`` =
     (boundary D, entropy D) that the port's state must hold."""
-    _check_model(state.gen.state_dict(), jstate.gen_params, jstate.gen_stats, "gen",
-                 stats_rtol)
+    check_model(state.gen.state_dict(), jstate.gen_params, jstate.gen_stats, "gen",
+                stats_rtol)
     if state.teacher is not None:
-        _check_model(state.teacher.state_dict(), jstate.teacher_params, jstate.teacher_stats,
-                     "teacher")
+        check_model(state.teacher.state_dict(), jstate.teacher_params, jstate.teacher_stats,
+                    "teacher")
     assert (state.dis is not None, state.dis2 is not None) == discriminators
     for dis, jparams in ((state.dis, jstate.dis_params), (state.dis2, jstate.dis2_params)):
         if dis is None:
@@ -277,3 +286,188 @@ def check_banks(jstate, state, atol: float):
     for name in ("proto_src", "proto_trg"):
         np.testing.assert_allclose(getattr(state, name).numpy(), np.asarray(getattr(jstate, name)),
                                    rtol=0, atol=atol, err_msg=name)
+
+
+# ---- the backbones against JAX (tests/test_torch_backbone_*.py) ----
+
+def perturb_norms(params, stats, rng):
+    """Random norm affine params and running stats, plain BN's or
+    TransNorm's four (init leaves them at 1/0/0/1, which would hide a
+    swapped field)."""
+    params, stats = to_np(params), to_np(stats)
+
+    def walk(p, s):
+        for k, v in p.items():
+            if isinstance(v, dict) and "scale" in v:
+                c = v["scale"].shape[0]
+                v["scale"] = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+                v["bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+                for name in s[k]:
+                    s[k][name] = ((0.1 * rng.standard_normal(c)) if name.startswith("mean")
+                                  else rng.uniform(0.5, 1.5, c)).astype(np.float32)
+            elif isinstance(v, dict):
+                walk(v, s.get(k, {}))
+
+    walk(params, stats)
+    return params, stats
+
+
+def jax_deeplab(backbone: str, output_stride: int = 16, norm: str = "bn", seed: int = 0):
+    """JAX DeepLab on ``backbone`` and its variables from ``PRNGKey(seed)``
+    (init traced as one program), with perturbed norms."""
+    model = JaxDeepLab(num_classes=2, backbone=backbone, output_stride=output_stride, norm=norm)
+    v = jax.jit(lambda key: model.init(key, jnp.zeros((1, 32, 32, 3)), train=False))(
+        jax.random.PRNGKey(seed))
+    params, stats = perturb_norms(v["params"], v["batch_stats"], np.random.default_rng(seed))
+    return model, params, stats
+
+
+def output_weights(output_stride: int, seed: int = 5):
+    """A fixed random weight per output of the 7-tuple: the test loss is the
+    sum of the means of output * weight, so every output feeds the
+    gradients."""
+    rng = np.random.default_rng(seed)
+    s, q, o = SIZE, SIZE // 4, SIZE // output_stride
+    shapes = ((s, s, 2), (s, s, 1), (o, o, 256), (q, q, 304), (q, q, 305), (q, q, 2), (q, q, 1))
+    return [rng.standard_normal((B,) + sh).astype(np.float32) for sh in shapes]
+
+
+def jax_forward(model, params, stats, x, train: bool, domains: int, weights):
+    """The JAX model's outputs, updated stats and the test loss's gradients
+    with respect to the params."""
+    def loss_fn(p):
+        outs, upd = model.apply({"params": p, "batch_stats": stats}, x, train=train,
+                                domains=domains, mutable=["batch_stats"])
+        loss = sum(jnp.mean(o * w) for o, w in zip(outs, weights))
+        return loss, (outs, upd["batch_stats"])
+
+    (_, (outs, upd)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    return outs, upd, grads
+
+
+def port_forward(gen, x, train: bool, domains: int, weights):
+    """The port model's outputs and its gradients by state_dict key."""
+    outs = gen(torch.from_numpy(x), train, domains)
+    sum(torch.mean(o * torch.from_numpy(w)) for o, w in zip(outs, weights)).backward()
+    return outs, {k: p.grad for k, p in gen.named_parameters()}
+
+
+GROUPS = ("backbone", "aspp", "decoder")
+
+
+def grad_errors(got: dict, jax_grads, stats, output_stride: int) -> dict:
+    """Per group of parameters (backbone, ASPP, decoder): ``global``, the
+    largest |port - JAX| over the group's gradients over their largest
+    |JAX| entry, and ``median``, the median over the group's tensors of
+    each tensor's largest |port - JAX| over its largest |JAX| entry. The
+    JAX gradient tree is carried to the port's keys by the weight bridge."""
+    want = deeplab_state_dict(to_np(jax_grads), stats, output_stride)
+    out = {}
+    for group in GROUPS:
+        keys = [k for k in got if k.startswith(group)]
+        diff = [float((got[k] - want[k]).abs().max()) for k in keys]
+        scale = [float(want[k].abs().max()) for k in keys]
+        out[group] = {"global": max(diff) / max(scale),
+                      "median": float(np.median([d / max(s, 1e-30)
+                                                 for d, s in zip(diff, scale)]))}
+    return out
+
+
+def backbone_errors(model, params, stats, backbone: str, output_stride: int, train: bool,
+                    norm: str = "bn") -> dict:
+    """The port's DeepLab on ``backbone`` against the JAX model from the same
+    variables, dropout off, at B=2 and SIZE^2: in train mode with
+    ``domains=2``, in eval mode with ``domains=1``. Returns the largest
+    difference of each output over its largest JAX entry (``outputs``), of
+    the running stats after the forward (``stats``, over every norm site),
+    and :func:`grad_errors` (``grads``)."""
+    x = np.random.default_rng(4).standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
+    os_ = 8 if backbone == "drn" else output_stride
+    weights = output_weights(os_)
+    domains = 2 if train else 1
+    outs, upd, grads = jax_forward(model, params, stats, x, train, domains, weights)
+    gen = DeepLab(backbone=backbone, output_stride=output_stride, norm=norm)
+    gen.load_state_dict(deeplab_state_dict(params, stats, output_stride))
+    got, port_grads = port_forward(gen, x, train, domains, weights)
+    assert got._fields == outs._fields
+    res = {"outputs": {}}
+    for name, g, w in zip(got._fields, got, outs):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape, name
+        res["outputs"][name] = float(np.abs(g.detach().numpy() - w).max() / np.abs(w).max())
+    sd = gen.state_dict()
+    want = deeplab_state_dict(params, to_np(upd), output_stride)
+    res["stats"] = max(float((sd[k] - want[k]).abs().max() / want[k].abs().max())
+                       for k in want if ".running_" in k)
+    res["grads"] = grad_errors(port_grads, grads, stats, output_stride)
+    return res
+
+
+def check_backbone(res: dict, tol: dict, what: str) -> None:
+    """``res`` of :func:`backbone_errors` within ``tol`` = {'outputs': x,
+    'stats': x, 'grads': {group: (global, median)}}."""
+    worst = max(res["outputs"].values())
+    assert worst <= tol["outputs"], f"{what}: outputs {res['outputs']}"
+    assert res["stats"] <= tol["stats"], f"{what}: running stats {res['stats']:.2e}"
+    for group, (g_tol, m_tol) in tol["grads"].items():
+        e = res["grads"][group]
+        assert e["global"] <= g_tol and e["median"] <= m_tol, f"{what}: {group} gradients {e}"
+
+
+def block_errors(jax_block, port_block, to_state_dict, shape, seed: int = 0,
+                 domains: int = 2) -> dict:
+    """One backbone block alone, in train mode with ``domains``, from the
+    JAX block's init at input ``shape`` (NHWC, norms perturbed), carried to
+    ``port_block`` by ``to_state_dict(sd, key, params, stats)``. The test
+    loss is the mean of output * a fixed random weight. Returns the largest
+    difference of the output over its largest JAX entry (``output``), of
+    the running stats (``stats``), and of each gradient, the input's
+    included, over its tensor's largest JAX entry (``grads``: the largest
+    over the tensors). A block is shallow, so its train-mode gradients
+    carry no noise floor from depth."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    v = jax.jit(lambda key: jax_block.init(key, jnp.asarray(x), False))(jax.random.PRNGKey(seed))
+    params, stats = perturb_norms(v["params"], v["batch_stats"], rng)
+    out_shape = jax.eval_shape(lambda: jax_block.apply(v, jnp.asarray(x), False)).shape
+    w = rng.standard_normal(out_shape).astype(np.float32)
+
+    def loss_fn(p, x):
+        out, upd = jax_block.apply({"params": p, "batch_stats": stats}, x, True, domains,
+                                   mutable=["batch_stats"])
+        return jnp.mean(out * w), (out, upd["batch_stats"])
+
+    (_, (out, upd)), (g_params, g_x) = jax.jit(jax.value_and_grad(
+        loss_fn, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+    sd = {}
+    to_state_dict(sd, "b", params, stats)
+    port_block.load_state_dict({k[2:]: v for k, v in sd.items()})
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    got = port_block(xt, True, domains).permute(0, 2, 3, 1)
+    torch.mean(got * torch.from_numpy(w)).backward()
+
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    res = {"output": rel(got.detach().numpy(), np.asarray(out))}
+    want = {}
+    to_state_dict(want, "b", to_np(g_params), to_np(upd))
+    mine = dict(port_block.named_parameters())
+    ours = port_block.state_dict()
+    res["stats"] = max(rel(ours[k[2:]].numpy(), want[k].numpy())
+                       for k in want if ".running_" in k)
+    # the bias of a separable conv's inner norm feeds the pointwise conv and
+    # then another train-mode norm, which takes its mean out: its gradient is
+    # zero in exact arithmetic, so each tensor is held relative to the larger
+    # of its own largest entry and 1% of the block's largest gradient
+    pairs = {k: (mine[k].grad.numpy(), want[f"b.{k}"].numpy()) for k in mine}
+    floor = 1e-2 * max(float(np.abs(ref).max()) for _, ref in pairs.values())
+    grads = {k: float(np.abs(g - ref).max() / max(float(np.abs(ref).max()), floor))
+             for k, (g, ref) in pairs.items()}
+    grads["input"] = rel(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(g_x))
+    res["grads"] = max(grads.values())
+    return res
+
+
+def check_block(res: dict, tol: dict, what: str) -> None:
+    """``res`` of :func:`block_errors` within ``tol`` (the same keys)."""
+    for k, t in tol.items():
+        assert res[k] <= t, f"{what}: {k} {res[k]:.2e} > {t}"

@@ -22,11 +22,11 @@ from uda_clr_tpu_torch.utils import miniyaml
 @dataclass
 class ModelConfig:
     num_classes: int = 2
-    backbone: str = "mobilenet"  # mobilenet | resnet | xception | drn (port: mobilenet)
-    output_stride: int = 16
-    norm: str = "bn"  # 'bn' | 'tn' (TransNorm, --use_TN; port: bn)
+    backbone: str = "mobilenet"  # mobilenet | resnet | xception | drn
+    output_stride: int = 16  # 16 | 8 (drn: always 8)
+    norm: str = "bn"  # 'bn' | 'tn' (TransNorm, --use_TN)
     compute_dtype: str = "float32"  # 'bfloat16' for the card
-    remat: bool = False  # rematerialized backbone blocks (port: not yet)
+    remat: bool = False  # rematerialized backbone blocks (torch.utils.checkpoint)
 
     @property
     def dtype(self) -> torch.dtype:

@@ -29,10 +29,15 @@ class _ASPPBranch(nn.Module):
 
 class ASPP(nn.Module):
     def __init__(self, inplanes: int = 320, output_stride: int = 16, norm: str = "bn"):
+        """``inplanes``: the backbone's output width; dilations (1, 6, 12, 18)
+        at output stride 16, (1, 12, 24, 36) at 8 (aspp.py:52-57)."""
         super().__init__()
-        if output_stride != 16:
+        if output_stride == 16:
+            d = (1, 6, 12, 18)
+        elif output_stride == 8:
+            d = (1, 12, 24, 36)
+        else:
             raise NotImplementedError(f"output_stride {output_stride}")
-        d = (1, 6, 12, 18)
         self.aspp1 = _ASPPBranch(inplanes, 256, 1, d[0], norm)
         self.aspp2 = _ASPPBranch(inplanes, 256, 3, d[1], norm)
         self.aspp3 = _ASPPBranch(inplanes, 256, 3, d[2], norm)

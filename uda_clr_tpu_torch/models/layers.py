@@ -9,11 +9,14 @@ activations are cast once at the model input and stay in that dtype.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from uda_clr_tpu_torch.models.norm import DomainNorm2d
+from uda_clr_tpu_torch.models.norm import DomainNorm2d, frozen_stats
 from uda_clr_tpu_torch.ops.dropout import fused_dropout
 from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
 
@@ -49,6 +52,28 @@ def fixed_padding(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Ten
     beg = pad_total // 2
     end = pad_total - beg
     return F.pad(x, (beg, end, beg, end))
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """ResNet's stem pool, ``nn.MaxPool2d(3, 2, 1)`` (uda_clr_tpu/models/resnet.py
+    :18-20): the border pads with -inf, not 0."""
+    return F.max_pool2d(x, 3, 2, 1)
+
+
+def run_block(block: nn.Module, x: torch.Tensor, train: bool, domains: int,
+              remat: bool) -> torch.Tensor:
+    """``block(x, train, domains)``; with ``remat``, in a train-mode forward
+    that records gradients, rematerialised as the JAX package's ``nn.remat``
+    does (mobilenet.py:94-110): only the block's input is kept, and the
+    backward recomputes the inside under :func:`frozen_stats`, so the
+    recompute normalises with the same batch moments (no norm reads its
+    running stats in train mode) and writes the running stats no second
+    time. Backbones draw no random numbers, so no generator state is kept."""
+    if remat and train and torch.is_grad_enabled():
+        return checkpoint(block, x, train, domains, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), frozen_stats(block)))
+    return block(x, train, domains)
 
 
 # Dropout backend, the JAX package's five names (uda_clr_tpu/models/layers.py

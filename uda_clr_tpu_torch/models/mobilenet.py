@@ -1,13 +1,13 @@
-"""MobileNetV2 backbone, OS16 atrous plan (uda_clr_tpu/models/mobilenet.py
-:36-126). Keys follow the reference: ``features.0.{0,1}`` is the stem,
-``features.{i+1}.conv.{k}`` block i."""
+"""MobileNetV2 backbone with its atrous plan at output stride 16 or 8
+(uda_clr_tpu/models/mobilenet.py:36-126). Keys follow the reference:
+``features.0.{0,1}`` is the stem, ``features.{i+1}.conv.{k}`` block i."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from uda_clr_tpu_torch.models.layers import Conv2d, fixed_padding, run_layers
+from uda_clr_tpu_torch.models.layers import Conv2d, fixed_padding, run_block, run_layers
 from uda_clr_tpu_torch.models.norm import DomainNorm2d
 
 # (expand_ratio t, channels c, repeats n, stride s)
@@ -65,8 +65,9 @@ class InvertedResidual(nn.Module):
 class MobileNetV2(nn.Module):
     """Returns (high [B,320,H/os,W/os], low [B,24,H/4,W/4]), NCHW."""
 
-    def __init__(self, output_stride: int = 16, norm: str = "bn"):
+    def __init__(self, output_stride: int = 16, norm: str = "bn", remat: bool = False):
         super().__init__()
+        self.remat = remat  # every inverted-residual block rematerialised (run_block)
         stem = nn.ModuleList([Conv2d(3, 32, 3, 2, 1, bias=False), DomainNorm2d(32, mode=norm),
                               nn.ReLU6()])
         blocks = [InvertedResidual(*p, norm=norm) for p in mobilenet_block_plan(output_stride)]
@@ -76,7 +77,7 @@ class MobileNetV2(nn.Module):
         h = run_layers(self.features[0], x, train, domains)
         low = None
         for idx, block in enumerate(self.features[1:]):
-            h = block(h, train, domains)
+            h = run_block(block, h, train, domains, self.remat)
             if idx == 2:  # torch features[0:4] = stem + blocks 0-2
                 low = h
         return h, low

@@ -167,10 +167,11 @@ def frozen_stats(module: nn.Module):
     """Within the block, train-mode forwards of ``module`` normalise with
     batch moments as usual but write no running stats."""
     norms = [m for m in module.modules() if isinstance(m, DomainNorm2d)]
+    before = [m.update_stats for m in norms]  # restored as found, so the blocks nest
     for m in norms:
         m.update_stats = False
     try:
         yield
     finally:
-        for m in norms:
-            m.update_stats = True
+        for m, flag in zip(norms, before):
+            m.update_stats = flag

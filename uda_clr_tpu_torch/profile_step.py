@@ -1,12 +1,15 @@
 """Where a prototype-phase train step's time goes on the card.
 
     python -m uda_clr_tpu_torch.profile_step [--method prototype_full] [--norm bn]
-        [--mc-slow] [--dropout xla16] [--steps 3]
+        [--backbone mobilenet] [--out-stride 16] [--remat] [--mc-slow]
+        [--dropout xla16] [--steps 3]
 
-Builds chip_smoke.py's full-width configuration (mobilenet DeepLabv3+ OS16,
-512x512, 8 source + 8 target images, T=8, bfloat16) for ``--method``
-(``prototype_full``, ``prototype_mt`` or the disk-bank ``prototype``, with a
-random bank) under ``--norm`` (``bn``, or ``tn`` for TransNorm), with the
+Builds chip_smoke.py's full-width configuration (DeepLabv3+, 512x512, 8
+source + 8 target images, T=8, bfloat16) on ``--backbone`` at
+``--out-stride`` (drn: always 8), its backbone blocks rematerialised under
+``--remat``, for ``--method`` (``prototype_full``, ``prototype_mt``, the
+disk-bank ``prototype`` with a random bank, or ``bcdm``, whose steps have
+no phases) under ``--norm`` (``bn``, or ``tn`` for TransNorm), with the
 repeated-batch MC pass under ``--mc-slow`` (``mc_fast=False``) and the
 ``--dropout`` backend (``set_dropout_impl``; ``pallas`` runs the fused
 dropout kernel); runs one warmup and two prototype-phase steps untimed,
@@ -50,8 +53,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3, help="profiled prototype-phase steps")
     ap.add_argument("--method", default="prototype_full",
-                    choices=("prototype_full", "prototype_mt", "prototype"))
+                    choices=("prototype_full", "prototype_mt", "prototype", "bcdm"))
     ap.add_argument("--norm", default="bn", choices=("bn", "tn"))
+    ap.add_argument("--backbone", default="mobilenet",
+                    choices=("mobilenet", "resnet", "xception", "drn"))
+    ap.add_argument("--out-stride", type=int, default=16, choices=(8, 16))
+    ap.add_argument("--remat", action="store_true", help="rematerialised backbone blocks")
     ap.add_argument("--mc-slow", action="store_true",
                     help="the repeated-batch MC pass (mc_fast=False)")
     ap.add_argument("--dropout", default="xla16", choices=layers.IMPLS, help="dropout backend")
@@ -64,6 +71,9 @@ def main() -> None:
     cfg.model.compute_dtype = "bfloat16"
     cfg.method.mc_samples = 8
     cfg.model.norm = args.norm
+    cfg.model.backbone = args.backbone
+    cfg.model.output_stride = args.out_stride
+    cfg.model.remat = args.remat
     cfg.method.mc_fast = not args.mc_slow
     rng = np.random.default_rng(0)
     batch = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in {
@@ -96,9 +106,10 @@ def main() -> None:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     device_ms = sum(kernels.values())
     per_step = args.steps
-    print(f"{torch.cuda.get_device_name(0)}: {args.method}, norm {args.norm}, "
+    print(f"{torch.cuda.get_device_name(0)}: {args.method}, {args.backbone} OS "
+          f"{state.gen.output_stride}{' remat' if args.remat else ''}, norm {args.norm}, "
           f"mc_fast {cfg.method.mc_fast}, dropout {args.dropout}, "
-          f"{per_step} prototype-phase steps, "
+          f"{per_step} {'' if args.method == 'bcdm' else 'prototype-phase '}steps, "
           f"wall {wall_ms / per_step:.2f} ms/step, device busy {device_ms / per_step:.2f} ms/step "
           f"({100 * device_ms / wall_ms:.1f}% of wall)")
     families: dict[str, float] = {}

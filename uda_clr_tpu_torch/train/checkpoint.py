@@ -14,7 +14,11 @@ their init flags, the state's ``torch.Generator`` state, ``seed`` and
 mean teacher's state_dict, and for the disk-bank method its bank
 (``proto_bank``) and the frozen initial model (``initial_state_dict``).
 TransNorm's running stats sit in ``model_state_dict`` under the
-reference's keys (``running_{mean,var}_{source,target}``).
+reference's keys (``running_{mean,var}_{source,target}``). A ``bcdm``
+checkpoint keeps the generator (backbone + first classifier) under
+``model_state_dict``, the second classifier under
+``model_cls2_state_dict`` and the three Adam states under
+``optim_{fea,cls1,cls2}_state_dict`` in place of ``optim_state_dict``.
 """
 
 from __future__ import annotations
@@ -64,8 +68,6 @@ def state_dict(state: TrainState) -> dict:
     sd = lambda m: None if m is None else m.state_dict()
     ckpt = {
         "model_state_dict": sd(state.gen),
-        "optim_state_dict": state.gen_opt.state_dict(),
-        "learning_rate_gen": _lr(state.gen_opt),
         "proto_src": state.proto_src,
         "proto_trg": state.proto_trg,
         "proto_src_init": state.proto_src_init,
@@ -74,6 +76,14 @@ def state_dict(state: TrainState) -> dict:
         "seed": state.seed,
         "step": state.step,
     }
+    if state.bcdm_opt is None:
+        ckpt["optim_state_dict"] = state.gen_opt.state_dict()
+        ckpt["learning_rate_gen"] = _lr(state.gen_opt)
+    else:
+        ckpt["model_cls2_state_dict"] = state.cls2.state_dict()
+        for name, opt in state.bcdm_opt.items():
+            ckpt[f"optim_{name}_state_dict"] = opt.state_dict()
+        ckpt["learning_rate_gen"] = _lr(state.bcdm_opt["fea"])
     for name, model, opt in (("dis", state.dis, state.dis_opt), ("dis2", state.dis2, state.dis2_opt)):
         if model is not None:
             ckpt[f"model_{name}_state_dict"] = model.state_dict()
@@ -92,9 +102,16 @@ def load_state_dict(state: TrainState, ckpt: dict) -> TrainState:
     """Restore ``ckpt`` into ``state`` in place (modules, optimizers, banks,
     random state, step counter); the checkpoint must come from the same
     method and switches (the same discriminators, teacher, disk bank and
-    initial model)."""
+    initial model, and bcdm's second classifier)."""
     state.gen.load_state_dict(ckpt["model_state_dict"])
-    state.gen_opt.load_state_dict(ckpt["optim_state_dict"])
+    if (state.cls2 is None) != ("model_cls2_state_dict" not in ckpt):
+        raise ValueError("checkpoint and state disagree on bcdm's second classifier")
+    if state.cls2 is None:
+        state.gen_opt.load_state_dict(ckpt["optim_state_dict"])
+    else:
+        state.cls2.load_state_dict(ckpt["model_cls2_state_dict"])
+        for name, opt in state.bcdm_opt.items():
+            opt.load_state_dict(ckpt[f"optim_{name}_state_dict"])
     for name, model, opt in (("dis", state.dis, state.dis_opt), ("dis2", state.dis2, state.dis2_opt)):
         key = f"model_{name}_state_dict"
         if (model is None) != (key not in ckpt):

@@ -1,8 +1,9 @@
 """Training state (uda_clr_tpu/train/state.py:26-150): the generator, the
 discriminators the method plays against, their optimizers, the two EMA
 prototype banks with their "seeded yet" flags, the mean teacher's shadow
-model, the disk-bank method's prototype bank and frozen initial model, and
-the step's random sources."""
+model, the disk-bank method's prototype bank and frozen initial model,
+``bcdm``'s second classifier with its three optimizers, and the step's
+random sources."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from uda_clr_tpu_torch import resolve_device
 from uda_clr_tpu_torch.config import Config
-from uda_clr_tpu_torch.models.deeplab import DeepLab
+from uda_clr_tpu_torch.models.deeplab import DeepLab, Heads
 from uda_clr_tpu_torch.models.gan import (
     BoundaryDiscriminator,
     PatchDiscriminator,
@@ -23,7 +24,7 @@ from uda_clr_tpu_torch.train import optim as optim_lib
 
 FEATURE_DIM = 305  # decoder x_feature channels
 METHODS = ("baseline", "adversarial", "posal", "prototype", "prototype_full", "prototype_mt",
-           "mean_teacher")
+           "mean_teacher", "bcdm")
 # the disk bank's vectors: x_bu_feature (304) and x_feature (305) channels
 BANK_SIZES = {"bu": FEATURE_DIM - 1, "cup": FEATURE_DIM, "disc": FEATURE_DIM}
 
@@ -33,7 +34,7 @@ class TrainState:
     gen: DeepLab
     dis: PatchDiscriminator | None  # boundary discriminator
     dis2: PatchDiscriminator | None  # uncertainty (entropy) discriminator
-    gen_opt: torch.optim.Adam
+    gen_opt: torch.optim.Adam | None  # None for bcdm, which steps bcdm_opt
     dis_opt: torch.optim.SGD | None
     dis2_opt: torch.optim.SGD | None
     proto_src: torch.Tensor  # [4, 305] (cup_obj, disc_obj, cup_bck, disc_bck)
@@ -50,15 +51,21 @@ class TrainState:
     # pseudo_from_initial: a frozen copy of the generator (after the initial
     # resume) whose eval-mode 'before' heads give the target pseudo-labels
     initial: DeepLab | None = None
+    # bcdm: the second classifier (ASPP + decoder; the first is gen's heads)
+    # and three Adam optimizers with their own step counts, 'fea' (gen's
+    # backbone), 'cls1' (gen's heads) and 'cls2' (state.py:55-64,108-120)
+    cls2: Heads | None = None
+    bcdm_opt: dict | None = None
 
 
 def discriminators_used(cfg: Config, method: str) -> tuple[bool, bool]:
     """(boundary D, entropy D) that ``method``'s step plays against
     (steps.py:538-545): none for the baseline or with ``use_adv`` off;
-    ``posal`` forces the entropy D off."""
+    ``posal`` forces the entropy D off. ``bcdm`` holds both, as the JAX
+    package's state does, though its step never reads them."""
     mcfg = cfg.method
     if method not in METHODS:
-        raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP A9)")
+        raise ValueError(f"method {method!r}; one of {METHODS}")
     if method == "baseline" or not mcfg.use_adv:
         return False, False
     return mcfg.use_boundary_d, mcfg.use_entropy_d and method != "posal"
@@ -68,7 +75,7 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
                        gen_state_dict=None, dis_state_dict=None,
                        dis2_state_dict=None, method: str = "prototype_full",
                        teacher_state_dict=None, initial_state_dict=None,
-                       proto_bank=None) -> TrainState:
+                       proto_bank=None, cls2_state_dict=None) -> TrainState:
     """Build the modules ``method`` needs from ``seed`` (or load the given
     state_dicts, e.g. from :mod:`uda_clr_tpu_torch.convert.from_jax`), with
     ``cfg.model.norm`` at every norm site, move them to ``device``
@@ -77,14 +84,21 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
     unless ``teacher_state_dict`` is given; ``prototype`` gets a disk bank
     (``proto_bank``, arrays or tensors keyed bu/cup/disc; zeros if None);
     ``cfg.method.pseudo_from_initial`` a frozen initial model, a copy of
-    the generator unless ``initial_state_dict`` is given."""
+    the generator unless ``initial_state_dict`` is given; ``bcdm`` a second
+    classifier seeded apart (``cls2_state_dict``) and the three optimizers
+    in place of ``gen_opt``. ``cfg.model`` picks the backbone, output
+    stride and ``remat``."""
     device = resolve_device(device)
     use_bd, use_ed = discriminators_used(cfg, method)
-    gen = DeepLab(cfg.model.num_classes, cfg.model.backbone, cfg.model.output_stride,
-                  seed=seed, norm=cfg.model.norm)
+    mc = cfg.model
+    gen = DeepLab(mc.num_classes, mc.backbone, mc.output_stride, seed=seed, norm=mc.norm,
+                  remat=mc.remat)
     dis = BoundaryDiscriminator(seed + 1) if use_bd else None
     dis2 = UncertaintyDiscriminator(seed + 2) if use_ed else None
-    for module, sd in ((gen, gen_state_dict), (dis, dis_state_dict), (dis2, dis2_state_dict)):
+    cls2 = Heads(mc.num_classes, mc.backbone, mc.output_stride, seed=seed + 3,
+                 norm=mc.norm) if method == "bcdm" else None
+    for module, sd in ((gen, gen_state_dict), (dis, dis_state_dict), (dis2, dis2_state_dict),
+                       (cls2, cls2_state_dict)):
         if module is None:
             continue
         if sd is not None:
@@ -113,10 +127,16 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
             if bank[k].shape != (n,):
                 raise ValueError(f"prototype bank {k!r} has shape {tuple(bank[k].shape)}, "
                                  f"want ({n},)")
+    bcdm_opt = None
+    if cls2 is not None:
+        heads1 = list(gen.aspp.parameters()) + list(gen.decoder.parameters())
+        bcdm_opt = {name: optim_lib.make_gen_optimizer(params, cfg.optim) for name, params in (
+            ("fea", gen.backbone.parameters()), ("cls1", heads1), ("cls2", cls2.parameters()))}
     zeros = torch.zeros((4, FEATURE_DIM), dtype=torch.float32, device=device)
     return TrainState(
         gen=gen, dis=dis, dis2=dis2,
-        gen_opt=optim_lib.make_gen_optimizer(gen.parameters(), cfg.optim),
+        gen_opt=None if cls2 is not None else optim_lib.make_gen_optimizer(
+            gen.parameters(), cfg.optim),
         dis_opt=optim_lib.make_dis_optimizer(dis.parameters(), cfg.optim) if dis else None,
         dis2_opt=optim_lib.make_dis_optimizer(dis2.parameters(), cfg.optim) if dis2 else None,
         proto_src=zeros.clone(), proto_trg=zeros.clone(),
@@ -127,4 +147,6 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
         teacher=teacher,
         proto_bank=bank,
         initial=initial,
+        cls2=cls2,
+        bcdm_opt=bcdm_opt,
     )

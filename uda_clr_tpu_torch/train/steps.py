@@ -4,7 +4,8 @@ standalone MC forward ``_mc_dropout_forward`` :234-301 and ``_mc_suffix``
 :136-231) for ``baseline``, ``adversarial``, ``posal``, ``prototype``,
 ``prototype_full``, ``prototype_mt`` and ``mean_teacher``, under either
 norm (``'bn'``, ``'tn'``), switched by the method and the config's flags as
-the JAX step is.
+the JAX step is; and the bi-classifier ``bcdm`` step
+(:func:`make_bcdm_step`, steps.py:304-491).
 
 One forward of the batch (S||T with ``domains=2`` when the method uses the
 target; the source alone for the baseline) feeds the G loss, the D losses
@@ -36,6 +37,7 @@ and losses run in float32 (explicit casts, no autocast).
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -58,8 +60,12 @@ from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
 _CL = torch.channels_last
 
 # sub-streams of a step's seed; K1 takes the step seed itself; the slow MC
-# pass's lane i draws from sub-stream _MC_LANES + i
-_MAIN_FORWARD, _AUG_FORWARD, _AUG_DRAWS, _MC_LANES = 1, 2, 3, 16
+# pass's lane i draws from sub-stream _MC_LANES + i; bcdm's head forward k
+# from _BCDM_HEADS + k
+_MAIN_FORWARD, _AUG_FORWARD, _AUG_DRAWS, _MC_LANES, _BCDM_HEADS = 1, 2, 3, 16, 32
+# bcdm (steps.py:394-396): mask logits tempered in the phase-A loss, the
+# discrepancy weight, and the feature-only steps of phase C
+BCDM_TEMPERATURE, BCDM_CDD_WEIGHT, BCDM_INNER_FEA_STEPS = 1.8, 0.01, 4
 
 
 def kernel_seed(seed: int, step: int) -> int:
@@ -180,6 +186,99 @@ def consistency_threshold(epoch: float) -> float:
     return float((f(0.85) + f(0.25) * ramp) * f(math.log(2.0)))
 
 
+def discrepancy(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """bcdm's classifier discrepancy, mean |sigmoid(v1) - sigmoid(v2)|
+    (steps.py:398-399)."""
+    return torch.mean(torch.abs(torch.sigmoid(v1) - torch.sigmoid(v2)))
+
+
+def bcdm_seg_loss(outs: DeepLabOutputs, map_s, boundary_s, temperature: float = 1.0):
+    """BCE of the mask logits divided by ``temperature`` plus the
+    untempered boundary MSE, in float32 (steps.py:401-404)."""
+    o = outs.mask_logits.float() / temperature
+    bd = outs.boundary_logits.float()
+    return L.bce_sigmoid_stable(o, map_s) + L.mse(torch.sigmoid(bd), boundary_s)
+
+
+def make_bcdm_step(cfg: Config):
+    """The bi-classifier discrepancy step (uda_clr_tpu/train/steps.py
+    :304-491): F = gen's backbone, C1 = gen's heads, C2 = ``state.cls2``,
+    every forward in train mode with ``domains=1`` and every running stat
+    updated in order, A -> B -> C.
+
+    A. A source forward through F and both classifiers; the sum of the two
+       seg losses (mask logits / 1.8) steps ``fea``, ``cls1`` and ``cls2``.
+    B. A source forward through F and both classifiers without a graph,
+       for its running-stat updates only; then a target forward whose
+       features carry no graph, and 0.01 * discrepancy of the mask logits
+       steps ``cls1`` and ``cls2`` (a positive sign, as compiled in the
+       reference).
+    C. Four times: a target forward and 0.01 * discrepancy steps ``fea``
+       alone; the backward computes no classifier gradient.
+
+    Each backward accumulates into the parameters its phase steps only
+    (``backward(inputs=...)``), their grads cleared first. Metrics:
+    ``loss_seg`` (A), ``loss_cdd_before`` (B), ``loss_cdd_after`` (the last
+    of C) and ``loss_all`` = A + 0.01 * (B + C's last)."""
+    dt = cfg.model.dtype
+    w = BCDM_CDD_WEIGHT
+
+    def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
+        batch = decode_batch(batch)  # uint8 wire batches -> float32
+        gen, cls2, g, opt = state.gen, state.cls2, state.generator, state.bcdm_opt
+        step_seed = kernel_seed(state.seed, state.step)
+        image_s = nchw(batch["image_s"].to(dt))
+        image_t = nchw(batch["image_t"].to(dt))
+        map_s, boundary_s = batch["map_s"], batch["boundary_s"]
+        hw = tuple(image_s.shape[2:])
+        params = {"fea": list(gen.backbone.parameters()),
+                  "cls1": list(gen.aspp.parameters()) + list(gen.decoder.parameters()),
+                  "cls2": list(cls2.parameters())}
+        forwards = itertools.count()  # each head forward's dropout sub-stream
+
+        def both_heads(high, low):
+            return [c.heads(high, low, hw, True, 1, layers_lib.DropoutStream(
+                g, stream_seed(step_seed, _BCDM_HEADS + next(forwards)))) for c in (gen, cls2)]
+
+        def update(loss, names):
+            for name in names:
+                optim_lib.set_lr(opt[name], lr_gen)
+                opt[name].zero_grad(set_to_none=True)
+            loss.backward(inputs=[p for name in names for p in params[name]])
+            for name in names:
+                opt[name].step()
+
+        def cdd(o1, o2):
+            return discrepancy(o1.mask_logits.float(), o2.mask_logits.float())
+
+        # ---- A: the supervised source step of F, C1 and C2 ----
+        o1, o2 = both_heads(*gen.features(image_s, True, 1))
+        loss_seg = (bcdm_seg_loss(o1, map_s, boundary_s, BCDM_TEMPERATURE)
+                    + bcdm_seg_loss(o2, map_s, boundary_s, BCDM_TEMPERATURE))
+        update(loss_seg, ("fea", "cls1", "cls2"))
+
+        # ---- B: the dead source forward (running stats only), then the
+        # classifiers' discrepancy step on target ----
+        with torch.no_grad():
+            both_heads(*gen.features(image_s, True, 1))
+            high, low = gen.features(image_t, True, 1)
+        cdd_before = cdd(*both_heads(high, low))
+        update(w * cdd_before, ("cls1", "cls2"))
+
+        # ---- C: the feature extractor's discrepancy steps on target ----
+        for _ in range(BCDM_INNER_FEA_STEPS):
+            cdd_after = cdd(*both_heads(*gen.features(image_t, True, 1)))
+            update(w * cdd_after, ("fea",))
+
+        state.step += 1
+        metrics = {"loss_seg": loss_seg, "loss_cdd_before": cdd_before,
+                   "loss_cdd_after": cdd_after,
+                   "loss_all": loss_seg + w * (cdd_before + cdd_after)}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
 def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bool = False):
     """Build ``step(state, batch, lr_gen, lr_dis, epoch=0) -> (state, metrics)``.
 
@@ -190,8 +289,11 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     0-d tensors (no host sync inside the step). The state's modules and
     optimizers update in place. ``proto_phase`` selects the prototype phase
     of ``prototype``/``prototype_full``/``prototype_mt`` (their warmup
-    otherwise); the other methods ignore it.
+    otherwise); the other methods ignore it. ``bcdm`` is
+    :func:`make_bcdm_step`'s.
     """
+    if method == "bcdm":
+        return make_bcdm_step(cfg)
     mcfg = cfg.method
     use_boundary_d, use_entropy_d = discriminators_used(cfg, method)
     if method == "posal":

@@ -14,12 +14,13 @@ The disk-bank method (``prototype``) reads its bank from
 ``prototype_bank_path`` (the prototype-bank tool's ``.npz``, zeros without
 one); with ``pseudo_from_initial`` the generator is frozen as the initial
 model right after ``initial_resume``. Under TransNorm, validation's eval
-forward normalizes with the target running stats.
+forward normalizes with the target running stats. ``bcdm`` validates its
+generator, the backbone with the first classifier (trainer.py:155).
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): the
-``bcdm`` method, multi-process data parallelism, a mesh wider than one
-device, orbax checkpoints as ``initial_resume``, ``save_val_images`` and
-``remat``. The train-time image grids (``viz_every``) are not written.
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md):
+multi-process data parallelism, a mesh wider than one device, orbax
+checkpoints as ``initial_resume`` and ``save_val_images``. The train-time
+image grids (``viz_every``) are not written.
 """
 
 from __future__ import annotations
@@ -51,9 +52,7 @@ _ADVERSARIAL_METHODS = {"adversarial", "posal", "prototype", "prototype_full", "
 
 
 def _not_ported(cfg: Config) -> None:
-    run, mcfg = cfg.run, cfg.method
-    if mcfg.method == "bcdm":
-        raise NotImplementedError("method 'bcdm' (make_bcdm_step) is not ported yet (ROADMAP A9)")
+    run = cfg.run
     if run.dist_coordinator or run.dist_num_processes > 1:
         raise NotImplementedError("multi-process data parallelism is not ported yet (ROADMAP A12)")
     if run.mesh_shape is not None and math.prod(run.mesh_shape) > 1:
@@ -65,8 +64,6 @@ def _not_ported(cfg: Config) -> None:
             "are not readable by the port yet (ROADMAP A7)")
     if run.save_val_images:
         raise NotImplementedError("save_val_images is not ported yet (ROADMAP A7)")
-    if cfg.model.remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP A11)")
 
 
 class Trainer:
