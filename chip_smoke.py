@@ -79,7 +79,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    configuration at the same width: 2 epochs, then ``--resume`` for a
    third, which must start at the checkpoint's next epoch and iteration
    with the saved second classifier and the three Adam states;
-11. prints a ``kernels`` JSON line (each kernel's launches summed over every
+11. builds the native host augmentation (``csrc/fundus_aug.cpp``, g++,
+   with the kernels) and holds it to the scipy path at 512^2 on ten seeds
+   (+/-1, the share of differing pixels bounded; the boundary ring
+   equal), the transforms' default path, with ms per sample of each;
+12. trains the flagship through the CLI's configuration, 2 epochs, with
+   each loader backend (threads, processes) and the native library on and
+   off, printing the loader wait and wall per step beside the direct step;
+13. trains it with ``viz_every`` 1 and ``save_val_images`` (64 validation
+   images) and without: every tag file of the JAX Trainer's image grids
+   and 8 validation strips per epoch, decoded to their shapes; the images'
+   cost per epoch;
+14. evaluates the checkpoint of step 12's first run with
+   ``tools/evaluate.py --postprocess --save-viz`` on the card and on the
+   CPU (metrics within EVAL_ATOL; ms per image); exports it with
+   ``tools/export.py --selftest`` in f32 and u8 on the card, serves batch 2
+   and 3 from one artifact, times a request of 8, and runs the payload with
+   ``torch.export.load`` in an interpreter that refuses the port;
+15. traces two flagship steps with ``utils/profiling.trace``;
+16. prints a ``kernels`` JSON line (each kernel's launches summed over every
    path driven above), the card's name and power limit, and as its last
    line ``{"ok": true, "device": {...}}``.
 
@@ -358,6 +376,7 @@ def small_parity_phase(torch, np, ports):
                 out = []
                 for proto in phases:
                     state, m = make_train_step(cfg, method, proto)(state, batch, 1e-5, 2.5e-5)
+                    take_viz(m, f"small {method} ({norm})", device)
                     out.append({k: float(v) for k, v in m.items()})
                 losses[device] = out
         finally:
@@ -429,6 +448,7 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
         t0 = time.perf_counter()
         state, m = warm(state, batch, 1e-3, 2.5e-5)
         torch.cuda.synchronize()
+        take_viz(m, f"{name} warmup")
         warm_ms = (time.perf_counter() - t0) * 1e3
         check_metrics(m, f"{name} warmup")
         for k, n in per_step["warmup"].items():
@@ -445,6 +465,9 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
         t0 = time.perf_counter()
         state, m = proto(state, batch, 1e-3, 2.5e-5)
         torch.cuda.synchronize()
+        tiles = take_viz(m, f"{name} prototype step {i}")
+        if method in ("prototype_full", "prototype_mt") and not {"std_t", "conf_t"} <= set(tiles):
+            fail(f"{name}: the rectified prototype step returned no std/confidence tiles")
         step_ms.append((time.perf_counter() - t0) * 1e3)
         check_metrics(m, f"{name} prototype step {i}")
         if keys is not None and set(m) != keys:
@@ -582,6 +605,7 @@ def bcdm_phase(torch, np, ports, mh, K3, impl: str) -> tuple[dict, float]:
             state, m = step(state, batch, 1e-3, 2.5e-5)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            take_viz(m, f"bcdm {impl} step {i}")
             check_metrics(m, f"bcdm {impl} step {i}")
             if set(m) != {"loss_seg", "loss_cdd_before", "loss_cdd_after", "loss_all"}:
                 fail(f"bcdm: metrics {sorted(m)}")
@@ -748,6 +772,7 @@ def other_methods_phase(torch, np, ports, mh, K3):
             state, m = step(state, batch, 1e-3, 2.5e-5)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            take_viz(m, f"{method} step {i}")
             check_metrics(m, f"{method} step {i}")
             if set(m) != want_keys:
                 fail(f"{method}: metrics {sorted(m)}, want {sorted(want_keys)}")
@@ -960,10 +985,388 @@ def bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3) -> dict:
     return total
 
 
+# the native host augmentation: NATIVE_SEEDS elastic warps at 512^2 held
+# to the scipy path within +/-1 (tests/test_native.py's contract) and the
+# share of pixels where they differ bounded. Measured on random uint8
+# images (an x86-64 host CPU, g++ -O3 -march=native -ffast-math): any channel
+# of the image 0.863-0.872, the label 0.372-0.375 (scipy's uint8 output
+# rounds where the native warp truncates, the +/-1 of the contract)
+NATIVE_SEEDS = 10
+NATIVE_SHARE_BOUND = {"image": 0.90, "label": 0.40}
+# the Trainer's image grids: the tags of the JAX package's
+# trainer.py:_write_train_images for a flagship step (warmup: the first 13;
+# prototype phase: all 17), and the validation strips of the first 8 batches
+TRAIN_IMAGE_TAGS = (
+    "DomainS/image", "DomainS/target_cup", "DomainS/target_disc", "DomainS/target_boundary",
+    "DomainS/prediction_cup", "DomainS/prediction_disc", "DomainS/prediction_boundary",
+    "DomainT/image", "DomainT/target_cup", "DomainT/target_disc", "DomainT/prediction_cup",
+    "DomainT/prediction_disc", "DomainT/boundaryT",
+    "DomainT/target_cup_std_map", "DomainT/target_disc_std_map", "DomainT/mask_0",
+    "DomainT/mask_1")
+VAL_STRIPS = 8
+# evaluation card vs CPU from one checkpoint (float32, TF32 off): the
+# metrics differ only where a pixel's probability crosses a threshold; one
+# flipped pixel moves a PA by 1/(8 * 512^2) = 4.8e-7 and a Dice by ~1e-6
+EVAL_ATOL = 1e-4
+
+
+def native_phase(np, native, transforms, SyntheticFundus, size: int = 512) -> None:
+    """The native library (built with the kernels) on this machine's host:
+    the transforms' default path; the elastic warp held to the scipy path on
+    NATIVE_SEEDS seeds, the boundary ring equal; ms per sample of each."""
+    import scipy.ndimage as ndi
+
+    if os.environ.get(native.ENV_VAR) == "0" or not native.available():
+        fail("native: the transforms' default path is not the native library")
+    ms = {"native": [], "scipy": []}
+    ring_ms = {"native": [], "scipy": []}
+    worst = {"image": 0.0, "label": 0.0}
+    for seed in range(NATIVE_SEEDS):
+        rng = np.random.default_rng(seed)
+        img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        lbl = ((rng.random((size, size)) < 0.3) * 255).astype(np.uint8)
+        rx, ry = rng.random((size, size)) * 2 - 1, rng.random((size, size)) * 2 - 1
+        mask = np.zeros((size, size, 2), np.uint8)
+        mask[size // 4:3 * size // 4, size // 4:3 * size // 4] = 1
+        mask[3 * size // 8:5 * size // 8, 3 * size // 8:5 * size // 8, 0] = 1
+        out, ring = {}, {}
+        for path in ("native", "scipy"):
+            native.set_enabled(path == "native")
+            t0 = time.perf_counter()
+            out[path] = native.elastic(img, lbl, rx, ry, 2.0 * size, 0.08 * size)
+            ms[path].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            ring[path] = native.boundary_ring(mask, 5)
+            ring_ms[path].append((time.perf_counter() - t0) * 1e3)
+        native.set_enabled(True)
+        if not np.array_equal(ring["native"], ring["scipy"]):
+            fail(f"native: the boundary ring differs from scipy's (seed {seed})")
+        dx = ndi.gaussian_filter(rx, 0.08 * size, mode="constant", cval=0) * 2.0 * size
+        dy = ndi.gaussian_filter(ry, 0.08 * size, mode="constant", cval=0) * 2.0 * size
+        x, y = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+        sy, sx = x + dx, y + dy
+        band = ((np.abs(sy) < 1e-3) | (np.abs(sy - (size - 1)) < 1e-3)
+                | (np.abs(sx) < 1e-3) | (np.abs(sx - (size - 1)) < 1e-3))
+        for i, key in enumerate(("image", "label")):
+            d = np.abs(out["native"][i].astype(int) - out["scipy"][i].astype(int))
+            d = d.max(-1) if d.ndim == 3 else d
+            if d[~band].max() > 1:
+                fail(f"native: the {key} warp is {d[~band].max()} from scipy's (seed {seed})")
+            worst[key] = max(worst[key], float((d > 0).mean()))
+    for key, bound in NATIVE_SHARE_BOUND.items():
+        if worst[key] > bound:
+            fail(f"native: {worst[key]:.4f} of the {key} pixels differ from scipy's "
+                 f"(bound {bound})")
+    ds = SyntheticFundus(NATIVE_SEEDS, size + 28, transform=transforms.train_transforms(size, "u8"))
+    sample_ms = {}
+    for path in ("native", "scipy"):
+        native.set_enabled(path == "native")
+        t0 = time.perf_counter()
+        for i in range(NATIVE_SEEDS):
+            ds.get(i, np.random.default_rng(i))
+        sample_ms[path] = (time.perf_counter() - t0) * 1e3 / NATIVE_SEEDS
+    native.set_enabled(True)
+    med = {p: statistics.median(v) for p, v in ms.items()}
+    ring = {p: statistics.median(v) for p, v in ring_ms.items()}
+    say(f"native: elastic {size}^2 within +/-1 of scipy on {NATIVE_SEEDS} seeds, differing "
+        f"pixels at most {worst['image']:.4f} (image) and {worst['label']:.4f} (label) "
+        f"(bounds {NATIVE_SHARE_BOUND['image']}, {NATIVE_SHARE_BOUND['label']}); boundary "
+        f"ring equal")
+    say(f"native: ms per sample (median of {NATIVE_SEEDS}, this host): elastic native "
+        f"{med['native']:.2f} scipy {med['scipy']:.2f} ({med['scipy'] / med['native']:.2f}x); "
+        f"boundary ring native {ring['native']:.2f} scipy {ring['scipy']:.2f}; "
+        f"train_transforms({size}, 'u8') native {sample_ms['native']:.2f} scipy "
+        f"{sample_ms['scipy']:.2f} ({sample_ms['scipy'] / sample_ms['native']:.2f}x)")
+
+
+def flagship_cli(torch, trainer_ports, mh, K3, tmp: str, name: str, max_epoch: int,
+                 device: str = "cuda", flags=TRAINER_FLAGS, edit=None, before_train=None):
+    """The flagship through the CLI's configuration (``flags``,
+    ``edit(cfg)``) into ``tmp/name``: the Trainer built as ``cli.main``
+    builds it, ``before_train(trainer)`` called, trained; one K1 launch per
+    prototype-phase step asserted. Returns (trainer, launches, seconds of
+    train())."""
+    cli, _, _, Trainer = trainer_ports
+    cfg = cli.build_config(flags + ["--max-epoch", str(max_epoch)])
+    if edit is not None:
+        edit(cfg)
+    path = os.path.join(tmp, name.replace(" ", "_") + ".yaml")
+    with open(path, "w") as f:
+        f.write(cfg.to_yaml())
+    out = os.path.join(tmp, name.replace(" ", "_"))
+    trainer = Trainer(cli.build_config(["--config", path, "--out", out]), device)
+    if before_train is not None:
+        before_train(trainer)
+    reset_counts(mh, K3)
+    t0 = time.perf_counter()
+    trainer.train()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts(mh, K3)
+    want = {k: 0 for k in launches}
+    want["k1"] = sum(s["steps"] for s in trainer.epoch_stats if s["proto_phase"])
+    if device == "cuda" and launches != want:
+        fail(f"{name}: kernel launches {launches}, expected {want}")
+    for s in trainer.epoch_stats:
+        phase = "prototype phase" if s["proto_phase"] else "warmup"
+        say(f"{name} epoch {s['epoch']} ({phase}): wall {1e3 * s['seconds'] / s['steps']:.1f} "
+            f"ms/step, loader wait {1e3 * s['loader_wait_s'] / s['steps']:.1f} ms/step, "
+            f"{s['img_per_s']:.2f} img/s")
+    return trainer, launches, seconds
+
+
+def native_trainer_phase(torch, trainer_ports, native, mh, K3, tmp: str, direct_ms: float,
+                         device: str = "cuda", flags=TRAINER_FLAGS) -> tuple[dict, str]:
+    """The flagship through the CLI, 2 epochs, with each loader backend
+    (``thread``, ``process``) and the native library on (the default, first)
+    and off; the loader wait and wall per step of each beside the direct
+    step. Returns the launches and the checkpoint directory of the first
+    run."""
+    total, rows, first_out = None, [], None
+    for backend in ("thread", "process"):
+        for on in (True, False):
+            if not on:
+                native.set_enabled(False)
+            elif not native.available():
+                fail("native trainer: the default path is not native")
+            name = f"native trainer {backend} native {'on' if on else 'off'}"
+
+            def edit(cfg, backend=backend):
+                cfg.data.loader_backend = backend
+            try:
+                trainer, launches, seconds = flagship_cli(
+                    torch, trainer_ports, mh, K3, tmp, name, 2, device, flags, edit)
+            finally:
+                native.set_enabled(True)
+            total = launches if total is None else {k: total[k] + launches[k] for k in total}
+            proto = [s for s in trainer.epoch_stats if s["proto_phase"]][-1]
+            rows.append((backend, on, 1e3 * proto["loader_wait_s"] / proto["steps"],
+                         1e3 * proto["seconds"] / proto["steps"], seconds))
+            if first_out is None:
+                first_out = trainer.cfg.run.out_dir
+            del trainer
+    say("native trainer (each run's prototype-phase epoch): " + "; ".join(
+        f"{b} native {'on' if on else 'off'}: loader wait {w:.1f} ms/step, wall {wall:.1f} "
+        f"ms/step" for b, on, w, wall, _ in rows) + f"; the direct flagship step "
+        f"{direct_ms:.2f} ms")
+    return total, os.path.join(first_out, "checkpoints")
+
+
+def images_phase(torch, np, trainer_ports, mh, K3, png, BatchLoader, SyntheticFundus,
+                 eval_transforms, tmp: str, device: str = "cuda", flags=TRAINER_FLAGS,
+                 size: int = 512) -> dict:
+    """The flagship through the CLI, 2 epochs, validating 64 images (8
+    batches), without images and with ``viz_every`` 1 and
+    ``save_val_images``: every tag file of JAX's ``_write_train_images`` at
+    every iteration decodes to its shape, ``visualization/epoch_N.png``
+    holds 8 strips; the images' cost per epoch. Tensorboard is kept out
+    (where it imports, the Trainer writes its images there instead of to
+    PNGs)."""
+    saved_tb = sys.modules.get("torch.utils.tensorboard")
+    sys.modules["torch.utils.tensorboard"] = None
+    try:
+        return _images_runs(torch, np, trainer_ports, mh, K3, png, BatchLoader,
+                            SyntheticFundus, eval_transforms, tmp, device, flags, size)
+    finally:
+        if saved_tb is None:
+            sys.modules.pop("torch.utils.tensorboard", None)
+        else:
+            sys.modules["torch.utils.tensorboard"] = saved_tb
+
+
+def _images_runs(torch, np, trainer_ports, mh, K3, png, BatchLoader, SyntheticFundus,
+                 eval_transforms, tmp, device, flags, size) -> dict:
+    total, wall = None, {}
+
+    def val64(trainer):
+        ds = SyntheticFundus(VAL_STRIPS * 8, size + 28, seed=3,
+                             transform=eval_transforms(size, wire=trainer.cfg.data.wire))
+        trainer.loader_val = BatchLoader(ds, 8, shuffle=False, drop_last=False,
+                                         num_workers=trainer.cfg.data.num_workers)
+
+    for images in (False, True):
+        def edit(cfg, images=images):
+            cfg.run.viz_every, cfg.run.save_val_images = (1, True) if images else (0, False)
+
+        name = f"images {'on' if images else 'off'}"
+        trainer, launches, wall[images] = flagship_cli(
+            torch, trainer_ports, mh, K3, tmp, name, 2, device, flags, edit, val64)
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+        out = trainer.cfg.run.out_dir
+        if not images:
+            continue
+        n = 0
+        for it in range(trainer.iteration + 1):
+            proto = it >= len(trainer.loader_s)  # epoch 0 is warmup, epoch 1 prototype
+            for tag in TRAIN_IMAGE_TAGS[:17 if proto else 13]:
+                path = os.path.join(out, "tensorboard", "images",
+                                    f"{tag.replace('/', '_')}_{it}.png")
+                if not os.path.exists(path):
+                    fail(f"images: {path} is missing")
+                pixels = png.read_png(path)[0]
+                # the confidence masks sit at the features' quarter resolution
+                side = size // 4 if tag.endswith(("mask_0", "mask_1")) else size
+                want = (side, side, 3 if tag.endswith("/image") else 1)
+                if pixels.shape != want:
+                    fail(f"images: {path} decodes to {pixels.shape}, want {want}")
+                n += 1
+        for epoch in (0, 1):
+            path = os.path.join(out, "visualization", f"epoch_{epoch}.png")
+            shape = png.read_png(path)[0].shape if os.path.exists(path) else None
+            if shape != (VAL_STRIPS * size, 4 * size, 3):
+                fail(f"images: {path} is {shape}, want {VAL_STRIPS} strips of {size}x{4 * size}")
+        say(f"images: {n} train-time grid files with JAX's tags at every iteration, "
+            f"{VAL_STRIPS} validation strips per epoch in visualization/epoch_N.png, all "
+            f"decoding to their shapes")
+    say(f"images: cost {(wall[True] - wall[False]) / 2:.2f} s per epoch (train() "
+        f"{wall[True]:.2f} s with images, {wall[False]:.2f} s without, 2 epochs of 2 steps "
+        f"and 64 validation images)")
+    return total
+
+
+def eval_phase(torch, np, evaluate, ckpt: str, tmp: str, device: str = "cuda",
+               size: int = 512) -> None:
+    """``tools/evaluate.py`` on the flagship CLI run's checkpoint over 8
+    synthetic images, with ``--postprocess`` and ``--save-viz``, on the
+    card and on the CPU: the metrics agree within EVAL_ATOL; ms per image
+    of the whole tool and of the eval forward alone."""
+    args = ["--checkpoint", ckpt, "--synthetic", "--image-size", str(size), "--batch-size", "8",
+            "--postprocess"]
+    got, ms = {}, {}
+    for where in ("card", "cpu"):
+        viz = os.path.join(tmp, f"eval_viz_{where}")
+        t0 = time.perf_counter()
+        got[where] = evaluate.main(args + ["--save-viz", viz, "--device",
+                                           device if where == "card" else "cpu"])
+        ms[where] = (time.perf_counter() - t0) * 1e3 / 8
+        files = sum(len(fs) for _, _, fs in os.walk(viz))
+        if files != 16:
+            fail(f"eval {where}: --save-viz wrote {files} files, want 16")
+    diff = {k: abs(got["card"][k] - got["cpu"][k]) for k in got["cpu"]}
+    say(f"eval: card vs CPU metrics {json.dumps(got['card'])}; largest gap "
+        f"{max(diff.values()):.3g} ({max(diff, key=diff.get)}; tolerance {EVAL_ATOL})")
+    if max(diff.values()) > EVAL_ATOL or not all(math.isfinite(v) for v in got["card"].values()):
+        fail("eval: the card's metrics differ from the CPU's")
+    fwd = float("nan")
+    if device == "cuda":
+        gen = evaluate.load_model(ckpt, False, torch.device(device))
+        x = torch.zeros((8, size, size, 3), device=device)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: gen(x, train=False), 3, 5)
+    say(f"eval: the tool takes {ms['card']:.1f} ms per image on the card ({ms['cpu']:.1f} on "
+        f"the CPU), loading, postprocessing and overlays included; its eval forward "
+        f"{fwd / 8:.3f} ms per image (batch 8)")
+
+
+_STANDALONE = """
+import io, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('uda_clr_tpu_torch', 'uda_clr_tpu', 'jax'):
+            raise ImportError(name + ' is refused')
+sys.meta_path.insert(0, Refuse())
+import torch
+raw = open(sys.argv[1], 'rb').read()
+n = int.from_bytes(raw[4:8], 'little')
+model = torch.export.load(io.BytesIO(raw[8 + n:])).module()
+out = model(torch.zeros((3, int(sys.argv[2]), int(sys.argv[2]), 3), dtype=torch.uint8,
+                        device=sys.argv[3]))
+print(*out['mask_probs'].shape, out['mask_probs'].device.type)
+"""
+
+
+def export_phase(torch, np, export, evaluate, ckpt: str, tmp: str, device: str = "cuda",
+                 size: int = 512) -> None:
+    """``tools/export.py --selftest`` on the checkpoint, f32 and u8, on the
+    card; the u8 artifact serves batch 2 and 3 from one program equal to the
+    live model, and loads and runs in an interpreter that refuses the port;
+    ms per request of 8."""
+    gen = evaluate.load_model(ckpt, False, torch.device(device))
+    for wire in ("f32", "u8"):
+        path = os.path.join(tmp, f"model_{wire}.uda.pt2")
+        t0 = time.perf_counter()
+        result = export.main(["--checkpoint", ckpt, "--out", path, "--image-size", str(size),
+                              "--wire", wire, "--device", device, "--selftest"])
+        seconds = time.perf_counter() - t0
+        _, program = export.load_artifact(path)
+        served = program.module()
+        live = export.make_serving_fn(gen, wire)
+        errs = []
+        for b in (2, 3):
+            x = torch.from_numpy(export.selftest_input(wire, b, size, seed=b)).to(device)
+            with torch.no_grad():
+                errs.append(export.max_abs_err(served(x), live(x)))
+        if max(errs) > 1e-6:
+            fail(f"export {wire}: the reloaded artifact is {max(errs)} from the live model")
+        x8 = torch.from_numpy(export.selftest_input(wire, 8, size, seed=8)).to(device)
+        with torch.no_grad():
+            req = cuda_ms(lambda: served(x8), 3, 5) if device == "cuda" else float("nan")
+            live_ms = cuda_ms(lambda: live(x8), 3, 5) if device == "cuda" else float("nan")
+        say(f"export {wire}: {result['bytes'] / 1e6:.1f} MB in {seconds:.1f} s (export, save, "
+            f"reload, self-test {result['selftest_max_abs_err']:.3g}); batch 2 and 3 from one "
+            f"program within {max(errs):.3g} of the live model; {req:.3f} ms per request of 8 "
+            f"(the live model {live_ms:.3f} ms)")
+    proc = subprocess.run([sys.executable, "-c", _STANDALONE, path, str(size), device],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or proc.stdout.split() != ["3", str(size), str(size), "2", device]:
+        fail(f"export: the payload alone did not serve: {proc.stdout} {proc.stderr[-2000:]}")
+    say(f"export: the u8 payload served a batch of 3 on {device} with torch.export.load "
+        f"alone, in an interpreter that refuses uda_clr_tpu_torch")
+
+
+def profiling_phase(torch, np, ports, profiling, mh, K3, tmp: str) -> dict:
+    """``utils/profiling.trace`` around two full-width flagship
+    prototype-phase steps: a Chrome trace with the card's kernels in it.
+    Returns the launch counts."""
+    Config, create_train_state, make_train_step, _ = ports
+    cfg = full_width_cfg(Config)
+    batch = full_width_batch(torch, np)
+    state = create_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(cfg, "prototype_full", proto_phase=True)
+    state, _ = step(state, batch, 1e-3, 2.5e-5)  # first-call costs out of the trace
+    torch.cuda.synchronize()
+    reset_counts(mh, K3)
+    out = os.path.join(tmp, "profile")
+    with profiling.trace(out):
+        for _ in range(2):
+            with profiling.annotate("flagship_step"):
+                state, m = step(state, batch, 1e-3, 2.5e-5)
+    launches = counts(mh, K3)
+    path = os.path.join(out, "trace.json")
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    marks = sum(1 for e in events if e.get("name") == "flagship_step")
+    say(f"profiling: {path} {os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, "
+        f"{kernels} card kernels, {marks} annotated steps; launches {launches}")
+    if kernels == 0 or marks < 2 or launches["k1"] != 2:
+        fail("profiling: the trace holds no card kernel or annotation, or K1 did not run")
+    del state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def check_counts(mh, K3, expect: dict, where: str) -> None:
     got = counts(mh, K3)
     if got != expect:
         fail(f"{where}: kernel launches {got}, expected {expect}")
+
+
+def take_viz(m: dict, where: str, device: str = "cuda") -> dict:
+    """Pop the step's ``_viz`` tiles (the Trainer's image grids) and check
+    them: finite [H, W, C] float32 tiles on ``device``."""
+    import torch
+
+    tiles = m.pop("_viz", None)
+    if not tiles or not {"pred_s", "pred_b_s"} <= set(tiles):
+        fail(f"{where}: the step returned no _viz tiles ({tiles and sorted(tiles)})")
+    for k, v in tiles.items():
+        if v.dim() != 3 or v.dtype != torch.float32 or v.device.type != device \
+                or not bool(v.isfinite().all()):
+            fail(f"{where}: _viz tile {k} {tuple(v.shape)} {v.dtype} on {v.device} is not a "
+                 f"finite float32 tile")
+    return tiles
 
 
 def check_metrics(m: dict, where: str) -> None:
@@ -987,7 +1390,7 @@ def main() -> None:
 
         from uda_clr_tpu_torch import cli
         from uda_clr_tpu_torch.config import Config
-        from uda_clr_tpu_torch.data import wire
+        from uda_clr_tpu_torch.data import native, png, transforms, wire
         from uda_clr_tpu_torch.data.pipeline import BatchLoader
         from uda_clr_tpu_torch.data.synthetic import SyntheticFundus
         from uda_clr_tpu_torch.data.transforms import eval_transforms
@@ -997,11 +1400,12 @@ def main() -> None:
         from uda_clr_tpu_torch.ops import cuda_build
         from uda_clr_tpu_torch.ops import dropout as K3
         from uda_clr_tpu_torch.ops import mask_head as mh
-        from uda_clr_tpu_torch.tools import cal_prototype
+        from uda_clr_tpu_torch.tools import cal_prototype, evaluate, export
         from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
         from uda_clr_tpu_torch.train.state import create_train_state
         from uda_clr_tpu_torch.train.steps import kernel_seed, make_train_step
         from uda_clr_tpu_torch.train.trainer import Trainer
+        from uda_clr_tpu_torch.utils import profiling
         from uda_clr_tpu_torch.utils.logging import LOG_HEADERS
     except ImportError as e:
         fail(f"the port's package is not importable from here ({e}); run from the repo root")
@@ -1013,10 +1417,11 @@ def main() -> None:
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = (mh.LIBRARY, K3.LIBRARY)
+    libraries = (mh.LIBRARY, K3.LIBRARY, native.LIBRARY)
     cuda_build.build_all(libraries)
     say(f"build: {time.perf_counter() - t0:.1f} s for "
-        f"{', '.join(lib.source.name for lib in libraries)} (nvcc for sm_90a, in parallel)")
+        f"{', '.join(lib.source.name for lib in libraries)} (nvcc for sm_90a and g++ "
+        f"{' '.join(cuda_build.CXXFLAGS)}, in parallel)")
     for lib in libraries:
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1107,9 +1512,26 @@ def main() -> None:
     trainer = trainer_phase(torch, trainer_ports, mh, K3, flagship_ms)
     bank_trainer = bank_trainer_phase(torch, np, trainer_ports, cal_prototype, mh, K3)
     bcdm_trainer = bcdm_trainer_phase(torch, trainer_ports, mh, K3)
+
+    # the native host augmentation, the images, the evaluation and export
+    # tools, profiling
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        native_phase(np, native, transforms, SyntheticFundus)
+        native_trainer, ckpt_dir = native_trainer_phase(torch, trainer_ports, native, mh, K3,
+                                                        tmp, flagship_ms)
+        ckpt = os.path.join(ckpt_dir, ckpt_lib.latest_checkpoint(ckpt_dir) + ".pth.tar")
+        images = images_phase(torch, np, trainer_ports, mh, K3, png, BatchLoader,
+                              SyntheticFundus, eval_transforms, tmp)
+        eval_phase(torch, np, evaluate, ckpt, tmp)
+        export_phase(torch, np, export, evaluate, ckpt, tmp)
+        profiled = profiling_phase(torch, np, ports, profiling, mh, K3, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches over every path this run drove
     paths = (flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, *backbone_paths, remat,
-             bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer)
+             bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
+             profiled)
     launched = {k: sum(p[k] for p in paths) for k in flagship}
     say(f"launches over the paths: {launched}")
 

@@ -1,5 +1,7 @@
 """The port's data path (uda_clr_tpu_torch/data/*) against Pillow and the
-JAX package's data path with its native library off. Every comparison is
+JAX package's data path, with the native library off in both packages
+(the scipy formulations; tests/test_torch_native.py holds the native
+streams). Every comparison is
 bitwise (np.array_equal on arrays of the same dtype): the port reproduces
 Pillow's integer arithmetic and the JAX module's numpy/scipy calls exactly.
 Images are 64^2 crops of 92^2 samples, batches of 2."""
@@ -19,6 +21,7 @@ from uda_clr_tpu.data import synthetic as jax_synthetic
 from uda_clr_tpu.data import transforms as JT
 from uda_clr_tpu.data import wire as jax_wire
 from uda_clr_tpu_torch.data import fundus, imaging, png, wire
+from uda_clr_tpu_torch.data import native as port_native
 from uda_clr_tpu_torch.data import transforms as PT
 from uda_clr_tpu_torch.data.pipeline import BatchLoader
 from uda_clr_tpu_torch.data.synthetic import SyntheticFundus
@@ -27,13 +30,16 @@ SEEDS = range(8)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def jax_native_off():
-    """The JAX transforms take their scipy formulation, as the port does
-    (the native library differs from scipy by 1 on some pixels)."""
+def native_off():
+    """Both packages' transforms take their scipy formulation (the native
+    library differs from scipy by 1 on some pixels)."""
     saved = (native._lib, native._tried)
+    port_saved = port_native._enabled, port_native._announced
     native.set_enabled(False)
+    port_native.set_enabled(False)
     yield
     native._lib, native._tried = saved
+    port_native._enabled, port_native._announced = port_saved
 
 
 def _same(a, b, what=""):

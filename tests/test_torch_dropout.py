@@ -21,6 +21,12 @@ from uda_clr_tpu.ops.pallas.dropout import dropout_pallas
 from uda_clr_tpu_torch.models import layers as port_layers
 from uda_clr_tpu_torch.ops import dropout as K3
 from uda_clr_tpu_torch.ops.philox import inv_keep, keep_threshold, philox_words
+from tests.torch_step_harness import two_threads  # noqa: F401  (fixture)
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
+
 
 DTYPES = [(jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)]
 

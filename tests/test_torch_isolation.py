@@ -3,8 +3,11 @@ modules, or running chip_smoke.py's imports, loads neither JAX nor any
 module of the JAX package, and needs none of Pillow, PyYAML, cv2, orbax or
 tensorboard, which a CUDA machine may lack: a fresh interpreter that
 refuses to import those imports every port module and chip_smoke.py, runs
-one ``train_transforms(64, wire="u8")`` sample and ``build_config([])``, and
-builds a TransNorm model and a model on each of the other three backbones.
+one ``train_transforms(64, wire="u8")`` sample (through the native
+library) and ``build_config([])``, builds a TransNorm model and a model on
+each of the other three backbones, evaluates a model over two synthetic
+images with postprocessing and contour overlays, and writes a heatmap, a
+validation strip and a scalar image.
 Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
@@ -52,6 +55,25 @@ for backbone, key in (('resnet', 'backbone.layer4.2.bn3.running_var'),
                       ('xception', 'backbone.block20.rep.8.running_var'),
                       ('drn', 'backbone.layer8.1.running_var')):
     assert key in DeepLab(backbone=backbone).state_dict()
+import tempfile
+from uda_clr_tpu_torch.data import native
+from uda_clr_tpu_torch.data.pipeline import BatchLoader
+from uda_clr_tpu_torch.data.png import read_png
+from uda_clr_tpu_torch.data.transforms import eval_transforms
+from uda_clr_tpu_torch.tools.evaluate import evaluate
+from uda_clr_tpu_torch.utils import logging, visualize
+assert native.available()
+tmp = tempfile.mkdtemp()
+loader = BatchLoader(SyntheticFundus(2, 92, transform=eval_transforms(64)), 2, shuffle=False,
+                     drop_last=False, num_workers=1)
+assert set(evaluate(DeepLab().eval(), loader, postprocess=True, save_viz=tmp)) >= {'cup_dice'}
+visualize.draw_mask(np.zeros((8, 8, 2)), tmp, 'a.png')
+visualize.save_val_img(tmp, 0, [np.zeros((8, 32, 3))])
+writer = logging.ScalarWriter(tmp)
+writer.add_image('a/b', np.ones((8, 8)), 1)
+writer.close()
+assert read_png(tmp + '/tensorboard/images/a_b_1.png')[0].shape == (8, 8, 1)
+assert read_png(tmp + '/overlay/' + sample['img_name'].split('.')[0] + '.png')[0].shape[2] == 3
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.')
              or m == 'flax' or m.startswith('flax.')
@@ -66,9 +88,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, bad = (proc.stdout.splitlines() + ["", ""])[:2]
+    count, bad = proc.stdout.splitlines()[-2:]  # the probe's last two lines
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 48
+    assert int(count) == len(modules) + 1 >= 54
     assert bad == "", f"the port loaded: {bad}"
 
 

@@ -29,6 +29,11 @@ from uda_clr_tpu_torch.models import layers as port_layers
 from uda_clr_tpu_torch.models.deeplab import nchw
 from uda_clr_tpu_torch.ops import mask_head as mh
 from uda_clr_tpu_torch.train.steps import kernel_seed, mc_suffix
+from tests.torch_step_harness import two_threads  # noqa: F401  (fixture)
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
 
 
 def _inputs(n=2, hw=16, seed=0):

@@ -5,7 +5,12 @@ from the same JAX-initialised weights carried over by the weight bridge
 Tolerance: 2e-3 absolute / 1e-3 relative on DeepLab outputs, as
 tests/test_convert.py holds the JAX model to the torch transcription (fp32
 convolutions accumulate in different orders over ~60 layers); 1e-5 on
-single layers."""
+single layers.
+
+The JAX model's init and forward are traced as one program each and shared
+by the cases (one compile per shape, not one per op and case)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +33,19 @@ from uda_clr_tpu_torch.models.deeplab import DeepLab
 from uda_clr_tpu_torch.models.gan import PatchDiscriminator
 from uda_clr_tpu_torch.models.mobilenet import mobilenet_block_plan
 from uda_clr_tpu_torch.models.norm import DomainNorm2d
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
+
+
+@pytest.fixture(scope="module")
+def two_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(2, threads))
+    yield
+    torch.set_num_threads(threads)
+
 
 SIZE, B = 64, 2
 
@@ -56,9 +74,16 @@ def perturb_bn(params, stats, rng):
     return params, stats
 
 
-def jax_deeplab_variables(seed=0, size=SIZE):
+@functools.lru_cache(maxsize=None)
+def _jax_deeplab(size):
+    """The JAX mobilenet DeepLab and its init at ``size``, compiled once."""
     model = JaxDeepLab(num_classes=2, backbone="mobilenet", output_stride=16, norm="bn")
-    v = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, size, size, 3)), train=False)
+    return model, jax.jit(lambda key: model.init(key, jnp.zeros((1, size, size, 3)), train=False))
+
+
+def jax_deeplab_variables(seed=0, size=SIZE):
+    model, init = _jax_deeplab(size)
+    v = init(jax.random.PRNGKey(seed))
     params, stats = perturb_bn(v["params"], v["batch_stats"], np.random.default_rng(seed))
     return model, params, stats
 
@@ -121,8 +146,9 @@ _STAT_SAMPLES = (
 def test_deeplab_outputs_match_jax(dropout_off, train, domains):
     model, params, stats = jax_deeplab_variables(seed=3)
     x = np.random.default_rng(4).standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
-    want, upd = model.apply({"params": params, "batch_stats": stats}, x, train=train,
-                            domains=domains, mutable=["batch_stats"])
+    want, upd = jax.jit(lambda v, x: model.apply(v, x, train=train, domains=domains,
+                                                  mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": stats}, x)
     gen = port_deeplab(params, stats)
     with torch.no_grad():
         got = gen(torch.from_numpy(x), train, domains)
@@ -143,9 +169,10 @@ def test_deeplab_outputs_match_jax(dropout_off, train, domains):
 
 @pytest.mark.parametrize("cls,channels", [(BoundaryDiscriminator, 1), (UncertaintyDiscriminator, 2)])
 def test_discriminators_match_jax(cls, channels):
-    params = to_np(cls().init(jax.random.PRNGKey(channels), jnp.zeros((1, SIZE, SIZE, channels)))["params"])
+    params = to_np(jax.jit(lambda k: cls().init(k, jnp.zeros((1, SIZE, SIZE, channels))))(
+        jax.random.PRNGKey(channels))["params"])
     x = np.random.default_rng(5).uniform(0, 1, (B, SIZE, SIZE, channels)).astype(np.float32)
-    want = np.asarray(cls().apply({"params": params}, x))
+    want = np.asarray(jax.jit(lambda p, x: cls().apply({"params": p}, x))(params, x))
     dis = PatchDiscriminator(channels)
     dis.load_state_dict(discriminator_state_dict(params))
     with torch.no_grad():
@@ -170,7 +197,8 @@ def test_bridge_round_trip():
         for k in fw:
             np.testing.assert_array_equal(fg[k], fw[k], err_msg=k)
 
-    dparams = to_np(BoundaryDiscriminator().init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 1)))["params"])
+    dparams = to_np(jax.jit(lambda k: BoundaryDiscriminator().init(k, jnp.zeros((1, 32, 32, 1))))(
+        jax.random.PRNGKey(0))["params"])
     back = convert_discriminator_state_dict(
         {k: v.numpy() for k, v in discriminator_state_dict(dparams).items()})
     for i in range(1, 6):

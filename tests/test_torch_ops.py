@@ -25,6 +25,12 @@ from uda_clr_tpu_torch.ops import losses as L
 from uda_clr_tpu_torch.ops import prototypes as P
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 from uda_clr_tpu_torch.train import optim as optim_lib
+from tests.torch_step_harness import two_threads  # noqa: F401  (fixture)
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
+
 
 RNG = np.random.default_rng
 

@@ -10,6 +10,7 @@ discriminative loss and its gradients, whose channel means and global means
 sum in another order; 1e-6 on the weight EMA."""
 
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_step_harness import jax_aug_draws
+from tests.torch_step_harness import jax_aug_draws, two_threads  # noqa: F401
 from uda_clr_tpu.ops import losses as JL
 from uda_clr_tpu.ops import prototypes as JP
 from uda_clr_tpu.ops.augment import strong_augment as jax_strong_augment
@@ -28,6 +29,11 @@ from uda_clr_tpu_torch.ops import prototypes as P
 from uda_clr_tpu_torch.ops.augment import N_DRAWS, augment_draws, strong_augment
 from uda_clr_tpu_torch.train import optim as optim_lib
 from uda_clr_tpu_torch.train.steps import consistency_threshold
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
+
 
 RNG = np.random.default_rng
 
@@ -72,7 +78,10 @@ def test_jax_aug_draws_replays_the_step_key():
     from uda_clr_tpu.models.deeplab import DeepLab
 
     model = DeepLab(num_classes=2, backbone="mobilenet", output_stride=16, norm="bn")
-    jstate = jax_create_train_state(model, jax.random.PRNGKey(0), (1, 32, 32, 3))
+    # the state's rng alone: the compiled program keeps only its computation
+    rng = jax.jit(lambda key: jax_create_train_state(model, key, (1, 32, 32, 3)).rng)(
+        jax.random.PRNGKey(0))
+    jstate = types.SimpleNamespace(rng=rng)
     k_aug = jax.random.split(jstate.rng, 6)[3]
     np.testing.assert_array_equal(jax_aug_draws(jstate, 3), _draws_of(k_aug, 3))
 

@@ -28,16 +28,21 @@ import pytest
 import torch
 
 from tests.test_torch_models import to_np
+from tests.torch_step_harness import check_viz, jax_train_state, two_threads  # noqa: F401
 from uda_clr_tpu.config import Config as JaxConfig
 from uda_clr_tpu.models import layers as jax_layers
 from uda_clr_tpu.models.deeplab import DeepLab as JaxDeepLab
-from uda_clr_tpu.train.state import create_train_state as jax_create_train_state
 from uda_clr_tpu.train.steps import make_train_step as jax_make_train_step
 from uda_clr_tpu_torch.config import Config
 from uda_clr_tpu_torch.convert.from_jax import deeplab_state_dict, discriminator_state_dict
 from uda_clr_tpu_torch.models import layers as port_layers
 from uda_clr_tpu_torch.train.state import create_train_state
 from uda_clr_tpu_torch.train.steps import make_train_step
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
+
 
 B, SIZE, T = 2, 64, 4
 LR_GEN, LR_DIS = 1e-5, 2.5e-5
@@ -102,7 +107,7 @@ def test_prototype_full_steps_match_jax(dropout_off):
     jcfg.method.mc_samples = T
     jcfg.method.rng_impl = "threefry2x32"  # rbg keys are TPU-only
     model = JaxDeepLab(num_classes=2, backbone="mobilenet", output_stride=16, norm="bn")
-    jstate = jax_create_train_state(model, jax.random.PRNGKey(0), (B, SIZE, SIZE, 3))
+    jstate = jax_train_state(model)
     params = to_np(jstate.gen_params)
     params["decoder"]["mask_out"]["conv"]["kernel"] *= 10.0
     jstate = jstate.replace(gen_params=jax.tree.map(jnp.asarray, params))
@@ -124,6 +129,7 @@ def test_prototype_full_steps_match_jax(dropout_off):
         state, got = make_train_step(cfg, "prototype_full", proto_phase=proto)(
             state, {k: torch.from_numpy(v) for k, v in batch.items()}, LR_GEN, LR_DIS)
 
+        check_viz(got.pop("_viz"), want["_viz"], it)
         assert set(got) == set(LOSSES + (PROTO_LOSSES if proto else ()))
         for k in LOSSES:
             np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=LOSS_RTOL[it],

@@ -6,7 +6,17 @@ dropout off on both sides. Harness and tolerances: tests/torch_step_harness.py."
 
 import pytest
 
-from tests.torch_step_harness import check_losses, check_params, dropout_off, run_steps  # noqa: F401
+from tests.torch_step_harness import (  # noqa: F401  (fixtures)
+    check_losses,
+    check_params,
+    dropout_off,
+    run_steps,
+    two_threads,
+)
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
 
 
 @pytest.mark.parametrize("method,discriminators", [("adversarial", (True, True)),

@@ -141,8 +141,11 @@ def test_checkpoint_resumes_bitwise(tmp_path, two_threads):
     fresh = create_train_state(cfg, seed=5, device="cpu", method="bcdm")
     fresh, _ = ckpt_lib.restore_checkpoint(str(tmp_path), "checkpoint_1", fresh)
     fresh, got = step(fresh, _batch(2), 1e-3, 2.5e-5)
+    viz_got, viz_want = got.pop("_viz"), want.pop("_viz")
     for k in want:
         assert torch.equal(got[k], want[k]), k
+    for k in viz_want:  # the image-grid tiles too
+        assert torch.equal(viz_got[k], viz_want[k]), k
     for a, b in ((state.gen, fresh.gen), (state.cls2, fresh.cls2)):
         for k, v in a.state_dict().items():
             assert torch.equal(b.state_dict()[k], v), k

@@ -7,13 +7,21 @@ loss_aug included, and all parameters: the port's augmentation is handed
 the JAX step's own nine draws per image, so both sides augment alike.
 Harness and tolerances: tests/torch_step_harness.py."""
 
+import pytest
+
 from tests.torch_step_harness import (  # noqa: F401
     check_banks,
     check_losses,
     check_params,
     dropout_off,
     run_steps,
+    two_threads,
 )
+
+# two torch threads: at one per core the port's CPU work and XLA's threads
+# contend in one process (a port step took ~10 s instead of ~0.3 s)
+pytestmark = pytest.mark.usefixtures("two_threads")
+
 
 BANK_ATOL = 8e-2  # measured 2.6e-2: target pixels cross the hard pseudo-label thresholds
 

@@ -241,7 +241,7 @@ def test_slow_mc_step_equals_fast_step_with_dropout_off(norm):
             batch = {k: torch.from_numpy(v) for k, v in _batch(np.random.default_rng(1)).items()}
             state, m = make_train_step(cfg, "prototype_full", proto_phase=True)(
                 state, batch, 1e-5, 2.5e-5)
-            out.append({k: float(v) for k, v in m.items()})
+            out.append({k: float(v) for k, v in m.items() if k != "_viz"})
     finally:
         layers.set_dropout_impl(prev)
     fast_m, slow_m = out

@@ -93,11 +93,18 @@ BN_STATS = (
 )
 
 
+_STATE_PROGRAMS = {}
+
+
 def jax_train_state(model, **kwargs):
     """The JAX package's ``create_train_state`` at the test shape from
-    PRNGKey(0), traced and compiled as one program."""
-    return jax.jit(lambda key: jax_create_train_state(model, key, (B, SIZE, SIZE, 3), **kwargs))(
-        jax.random.PRNGKey(0))
+    PRNGKey(0), traced and compiled as one program, once per model
+    configuration and options in a process (the cases of a file share it)."""
+    key = (model.backbone, model.output_stride, model.norm, tuple(sorted(kwargs.items())))
+    if key not in _STATE_PROGRAMS:
+        _STATE_PROGRAMS[key] = jax.jit(
+            lambda k: jax_create_train_state(model, k, (B, SIZE, SIZE, 3), **kwargs))
+    return _STATE_PROGRAMS[key](jax.random.PRNGKey(0))
 
 
 def get(tree, path):
@@ -199,12 +206,31 @@ def run_steps(method: str, phases, configure=None, monkeypatch=None, norm: str =
                                         LR_GEN, LR_DIS, EPOCH)
         state, got = port_steps[proto](state, {k: torch.from_numpy(v) for k, v in batch.items()},
                                        LR_GEN, LR_DIS, EPOCH)
-        want = {k: float(v) for k, v in want.items() if not k.startswith("_")}
+        check_viz(got.pop("_viz"), want.pop("_viz"), len(history))
+        want = {k: float(v) for k, v in want.items()}
         history.append(({k: v.item() for k, v in got.items()}, want))
         if each is not None:
             each(len(history) - 1, jstate, state)
     assert state.step == int(jstate.step) == len(phases)
     return jstate, state, history
+
+
+# The step's first-image ``_viz`` tiles, per iteration, relative to each
+# tile's largest entry (measured on the prototype_full step: pred_s 2.3e-3,
+# 3.0e-2, 4.8e-2; the x10 mask logits put many pixels on sigmoid's slope;
+# std_t and conf_t equal, dropout off makes the MC samples equal)
+VIZ_RTOL = (7e-3, 0.1, 0.15)
+
+
+def check_viz(got, want, it):
+    """The step's ``_viz`` tiles (the Trainer's image grids): the same keys
+    and shapes on both sides, each tile within ``VIZ_RTOL[it]``."""
+    assert set(got) == set(want), f"iter {it}: _viz {sorted(got)} vs {sorted(want)}"
+    for k, w in want.items():
+        w, g = np.asarray(w), got[k].numpy()
+        assert g.shape == w.shape, (k, g.shape, w.shape)
+        err = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-12))
+        assert err <= VIZ_RTOL[it], f"iter {it}: _viz {k} max diff {err:.2e} of its largest"
 
 
 def check_losses(history, overrides=None):

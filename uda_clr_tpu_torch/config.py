@@ -118,8 +118,8 @@ class RunConfig:
     dist_num_processes: int = 1
     dist_process_id: int = 0
     profile: bool = False
-    save_val_images: bool = False  # port: not yet
-    viz_every: int = 30  # train-time image grids (port: not written)
+    save_val_images: bool = False  # joint [img|gt|cup|disc] strips per validation
+    viz_every: int = 30  # train-time image grids every N iterations (0 = off)
 
 
 @dataclass

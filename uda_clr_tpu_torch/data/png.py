@@ -1,5 +1,6 @@
-"""A PNG reader on zlib and numpy, for the fundus datasets (the port needs
-no Pillow).
+"""A PNG reader and writer on zlib and numpy, for the fundus datasets and
+the images the tools and the Trainer write (the port needs no Pillow or
+cv2).
 
 It reads 8-bit, non-interlaced PNGs of colour types 0 (gray), 2 (RGB),
 3 (palette), 4 (gray + alpha) and 6 (RGBA), with all five line filters,
@@ -11,6 +12,8 @@ and converts as Pillow does:
   of an RGB mask (Pillow's integer luma ``(R*19595 + G*38470 + B*7471 +
   0x8000) >> 16``), the palette indices of a palette mask, and the stored
   channels otherwise.
+
+``write_png`` writes 8-bit gray ([H, W]) or RGB ([H, W, 3]) with filter 0.
 """
 
 from __future__ import annotations
@@ -144,3 +147,26 @@ def read_mask(path: str) -> np.ndarray:
     if ctype in (0, 3):
         return pixels[..., 0]
     return pixels
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write a uint8 [H, W] (gray) or [H, W, 3] (RGB, in that channel
+    order) image as a non-interlaced 8-bit PNG, every line with filter 0."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or not (image.ndim == 2 or (image.ndim == 3
+                                                           and image.shape[2] == 3)):
+        raise ValueError(f"write_png takes uint8 [H, W] or [H, W, 3], got "
+                         f"{image.dtype} {image.shape}")
+    height, width = image.shape[:2]
+    ctype = 0 if image.ndim == 2 else 2
+    rows = np.ascontiguousarray(image).reshape(height, -1)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1).tobytes()
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, ctype, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw, 6))
+                + _chunk(b"IEND", b""))

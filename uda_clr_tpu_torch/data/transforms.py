@@ -3,10 +3,11 @@ the reference's dataloaders/custom_transforms.py).
 
 Every class of the JAX module, over :mod:`uda_clr_tpu_torch.data.imaging`
 (Pillow's operations on uint8 arrays) and scipy, bitwise equal to the JAX
-module with its native library off: the elastic warp and the boundary ring
-are the scipy formulations that ``uda_clr_tpu/data/native.py`` falls back
-to. Randomness comes from the ``np.random.Generator`` each call is given,
-drawn in the JAX module's order.
+module: the elastic warp and the boundary ring call
+:mod:`uda_clr_tpu_torch.data.native` as the JAX module calls its native
+library (the native library by default, its scipy formulations when it is
+turned off in both packages). Randomness comes from the
+``np.random.Generator`` each call is given, drawn in the JAX module's order.
 
 Samples are dicts. Before ``Normalize_tf``: ``{'image' [H,W,3] uint8,
 'label' [H,W] uint8 (grayscale mask, or palette indices), 'img_name'}``.
@@ -24,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.ndimage as ndi
 
-from uda_clr_tpu_torch.data import imaging
+from uda_clr_tpu_torch.data import imaging, native
 
 
 def _u8(img) -> np.ndarray:
@@ -139,26 +140,13 @@ class RandomFlip:
         return {"image": img, "label": mask, "img_name": sample["img_name"]}
 
 
-def elastic(image: np.ndarray, label: np.ndarray, rand_x: np.ndarray,
-            rand_y: np.ndarray, alpha: float, sigma: float):
-    """Elastic deformation from raw U(-1,1) fields: gaussian-smoothed
-    displacements, bilinear image and clamped-bilinear label warps
-    (uda_clr_tpu/data/native.py:117-128)."""
-    h, w = label.shape
-    dx = ndi.gaussian_filter(rand_x, sigma, mode="constant", cval=0) * alpha
-    dy = ndi.gaussian_filter(rand_y, sigma, mode="constant", cval=0) * alpha
-    x, y = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    idx = (np.reshape(x + dx, (-1, 1)), np.reshape(y + dy, (-1, 1)))
-    out_img = np.zeros((h, w, 3))
-    for c in range(3):
-        out_img[:, :, c] = ndi.map_coordinates(image[:, :, c], idx, order=1).reshape(h, w)
-    out_lbl = ndi.map_coordinates(label, idx, order=1, mode="nearest").reshape(h, w)
-    return out_img.astype(np.uint8), out_lbl.astype(np.uint8)
-
-
 class elastic_transform:
     """Simard-style elastic deformation, p=0.5
-    (custom_transforms.py:95-147): alpha=2H, sigma=0.08H."""
+    (custom_transforms.py:95-147): alpha=2H, sigma=0.08H, through
+    :func:`native.elastic`."""
+
+    def __init__(self):
+        native.available()  # build and load before a loader's workers start
 
     def __call__(self, sample, rng):
         img = _u8(sample["image"])
@@ -169,7 +157,7 @@ class elastic_transform:
             sigma = _size(img)[1] * 0.08
             rand_x = rng.random(shape) * 2 - 1
             rand_y = rng.random(shape) * 2 - 1
-            out, out_lbl = elastic(img, lbl, rand_x, rand_y, alpha, sigma)
+            out, out_lbl = native.elastic(img, lbl, rand_x, rand_y, alpha, sigma)
             return {"image": out, "label": out_lbl, "img_name": sample["img_name"]}
         return {"image": img, "label": lbl, "img_name": sample["img_name"]}
 
@@ -228,27 +216,16 @@ class eraser:
         return {"image": image, "label": sample["label"], "img_name": sample["img_name"]}
 
 
-def boundary_ring(mask2: np.ndarray, iters: int = 5) -> np.ndarray:
-    """Cup+disc boundary ring: the union over both channels of dilation XOR
-    erosion (uda_clr_tpu/data/native.py:145-154)."""
-    m = (mask2 > 0).astype(np.uint8)
-    out = np.zeros(m.shape[:2], np.uint8)
-    for ch in range(2):
-        a = m[..., ch]
-        dil = ndi.binary_dilation(a, iterations=iters)
-        ero = ndi.binary_erosion(a, iterations=iters)
-        out |= (dil.astype(np.uint8) + ero.astype(np.uint8) == 1).astype(np.uint8)
-    return out
-
-
 class GetBoundary:
-    """Cup+disc boundary ring of width 5 (custom_transforms.py:414-429)."""
+    """Cup+disc boundary ring of width 5 (custom_transforms.py:414-429),
+    through :func:`native.boundary_ring`."""
 
     def __init__(self, width=5):
         self.width = width
+        native.available()
 
     def __call__(self, mask):
-        return boundary_ring(mask[:, :, :2], iters=self.width)
+        return native.boundary_ring(mask[:, :, :2], iters=self.width)
 
 
 class Normalize_tf:

@@ -69,12 +69,10 @@ def load_generator(path: str, gen: DeepLab) -> None:
     or the reference's ``model_state_dict``) into ``gen``; every tensor of
     ``gen`` must be in it (extra keys such as ``num_batches_tracked`` are
     ignored)."""
-    from uda_clr_tpu_torch.train.checkpoint import load_file
+    from uda_clr_tpu_torch.train.checkpoint import ORBAX_NOTE, load_file
 
     if not path.endswith((".pth", ".pth.tar")):
-        raise NotImplementedError(
-            "--checkpoint reads .pth/.pth.tar files; orbax checkpoint directories are not "
-            "readable by the port yet (ROADMAP A7)")
+        raise NotImplementedError(ORBAX_NOTE.format(what="--checkpoint"))
     ckpt = load_file(path)
     if "model_state_dict" not in ckpt:
         raise ValueError(f"{path} holds no model_state_dict")

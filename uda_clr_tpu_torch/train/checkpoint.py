@@ -34,6 +34,10 @@ import torch
 from uda_clr_tpu_torch.train.state import TrainState
 
 _SUFFIX = ".pth.tar"
+# what an entry point says when it is given an orbax checkpoint directory
+ORBAX_NOTE = ("{what} reads .pth/.pth.tar files; convert an orbax checkpoint directory first "
+              "with `python convert_orbax_checkpoint.py CKPT_DIR/TAG OUT.pth.tar` (a script at "
+              "the repo's root that needs JAX and orbax)")
 # what a pickled numpy scalar needs (the reference stores best_mean_dice as
 # a numpy float): its reconstructor, np.dtype and the dtype's class
 _NUMPY_SCALARS = [np.float64(0).__reduce__()[0], np.dtype] + [

@@ -219,7 +219,9 @@ def make_bcdm_step(cfg: Config):
     Each backward accumulates into the parameters its phase steps only
     (``backward(inputs=...)``), their grads cleared first. Metrics:
     ``loss_seg`` (A), ``loss_cdd_before`` (B), ``loss_cdd_after`` (the last
-    of C) and ``loss_all`` = A + 0.01 * (B + C's last)."""
+    of C) and ``loss_all`` = A + 0.01 * (B + C's last); ``_viz`` holds
+    phase A's first-image ``pred_s`` and ``pred_b_s`` of the first
+    classifier."""
     dt = cfg.model.dtype
     w = BCDM_CDD_WEIGHT
 
@@ -255,6 +257,8 @@ def make_bcdm_step(cfg: Config):
         o1, o2 = both_heads(*gen.features(image_s, True, 1))
         loss_seg = (bcdm_seg_loss(o1, map_s, boundary_s, BCDM_TEMPERATURE)
                     + bcdm_seg_loss(o2, map_s, boundary_s, BCDM_TEMPERATURE))
+        viz = {"pred_s": torch.sigmoid(o1.mask_logits.detach().float()[0]),
+               "pred_b_s": torch.sigmoid(o1.boundary_logits.detach().float()[0])}
         update(loss_seg, ("fea", "cls1", "cls2"))
 
         # ---- B: the dead source forward (running stats only), then the
@@ -274,7 +278,9 @@ def make_bcdm_step(cfg: Config):
         metrics = {"loss_seg": loss_seg, "loss_cdd_before": cdd_before,
                    "loss_cdd_after": cdd_after,
                    "loss_all": loss_seg + w * (cdd_before + cdd_after)}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["_viz"] = viz
+        return state, metrics
 
     return step
 
@@ -286,7 +292,10 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     the baseline), NHWC tensors on the state's device, float32 or uint8 wire
     (decoded first, data/wire.py); optionally ``consistency_weight`` for the
     mean teacher. ``metrics`` holds detached
-    0-d tensors (no host sync inside the step). The state's modules and
+    0-d tensors (no host sync inside the step), and under ``"_viz"`` the
+    first image's detached tiles for the Trainer's image grids: ``pred_s``,
+    ``pred_b_s``, with a target ``pred_t`` and ``bnd_t_raw``, and with the
+    MC rectification ``std_t`` and ``conf_t``. The state's modules and
     optimizers update in place. ``proto_phase`` selects the prototype phase
     of ``prototype``/``prototype_full``/``prototype_mt`` (their warmup
     otherwise); the other methods ignore it. ``bcdm`` is
@@ -359,9 +368,14 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             loss_seg = loss_seg + L.mse(torch.sigmoid(b_s), boundary_s)
         loss = loss_seg
         metrics = {"loss_seg": loss_seg}
+        # first-image tiles for the Trainer's image grids
+        # (Trainer_prototype_full.py:307-325,519-575), left on the device
+        viz = {"pred_s": torch.sigmoid(o_s[0]), "pred_b_s": torch.sigmoid(b_s[0])}
         if use_target:
             o_t = out_t.mask_logits.float()
             bd_t = out_t.boundary_logits.float()
+            viz["pred_t"] = torch.sigmoid(o_t[0])
+            viz["bnd_t_raw"] = bd_t[0]  # logged before the sigmoid (:534-535)
         if use_adv:
             # reference term order: entropy-D first, boundary-D second
             adv = 0.0
@@ -385,6 +399,7 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                     out_t.mask_before.float(), out_t.x_feature.float(), mc,
                     mcfg.pseudo_threshold, mcfg.std_threshold)
                 trg = rect.prototypes
+                viz["std_t"], viz["conf_t"] = rect.std_map[0], rect.conf_mask[0]
             else:
                 trg = P.gen_prototype(torch.sigmoid(out_t.mask_before.float()),
                                       out_t.x_feature.float())
@@ -474,7 +489,9 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                 for t_buf, s_buf in zip(state.teacher.buffers(), gen.buffers()):
                     t_buf.copy_(s_buf)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["_viz"] = {k: v.detach() for k, v in viz.items()}
+        return state, metrics
 
     return step
 

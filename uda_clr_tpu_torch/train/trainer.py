@@ -17,10 +17,16 @@ model right after ``initial_resume``. Under TransNorm, validation's eval
 forward normalizes with the target running stats. ``bcdm`` validates its
 generator, the backbone with the first classifier (trainer.py:155).
 
+Images: every ``viz_every`` iterations the step's first-image tiles and
+the host batch become the reference's tensorboard image grids (PNGs under
+``tensorboard/images/`` without tensorboard), written after the epoch's
+scalars, off the step's path; with ``save_val_images`` validation writes
+the first 8 batches' strips to ``visualization/epoch_N.png``.
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md):
-multi-process data parallelism, a mesh wider than one device, orbax
-checkpoints as ``initial_resume`` and ``save_val_images``. The train-time
-image grids (``viz_every``) are not written.
+multi-process data parallelism and a mesh wider than one device. An orbax
+checkpoint directory as ``initial_resume`` raises naming
+``convert_orbax_checkpoint.py``, which turns it into a ``.pth.tar``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from uda_clr_tpu_torch.train.steps import make_eval_step, make_train_step
 from uda_clr_tpu_torch.utils.logging import CsvLogger, ScalarWriter, StepTimer
 from uda_clr_tpu_torch.utils.metrics import dice_coeff_2label, pixel_acc
 from uda_clr_tpu_torch.utils.ramps import get_current_consistency_weight
+from uda_clr_tpu_torch.utils.visualize import joint_val_image, save_val_img
 
 _ADVERSARIAL_METHODS = {"adversarial", "posal", "prototype", "prototype_full", "prototype_mt",
                         "mean_teacher", "bcdm"}
@@ -59,11 +66,7 @@ def _not_ported(cfg: Config) -> None:
         raise NotImplementedError(
             f"mesh_shape {run.mesh_shape}: the port trains on one device (ROADMAP A12)")
     if run.initial_resume and not run.initial_resume.endswith((".pth", ".pth.tar")):
-        raise NotImplementedError(
-            "initial_resume reads .pth/.pth.tar files; orbax checkpoint directories "
-            "are not readable by the port yet (ROADMAP A7)")
-    if run.save_val_images:
-        raise NotImplementedError("save_val_images is not ported yet (ROADMAP A7)")
+        raise NotImplementedError(ckpt_lib.ORBAX_NOTE.format(what="initial_resume"))
 
 
 class Trainer:
@@ -124,9 +127,6 @@ class Trainer:
         self.best_epoch = -1
         # per trained epoch: wall time, img/s, loader wait, peak device memory
         self.epoch_stats: list[dict] = []
-        if cfg.run.viz_every:
-            print(f"viz_every={cfg.run.viz_every}: the port writes no train-time image "
-                  f"grids (ROADMAP A7)")
 
         if cfg.run.initial_resume:
             self._initial_resume(cfg.run.initial_resume)
@@ -237,6 +237,8 @@ class Trainer:
             torch.cuda.reset_peak_memory_stats(self.device)
         self.timer.start()
         pending = []
+        viz_pending = []
+        viz_every = cfg.run.viz_every
         wait = 0.0
         source = self.loader_s.epoch(self.epoch)
         batch_idx = 0
@@ -256,6 +258,10 @@ class Trainer:
             if batch_idx == prof_stop:
                 self._stop_profile(prof)
                 prof = None
+            viz = metrics.pop("_viz", None)
+            if viz is not None and viz_every and self.iteration % viz_every == 0:
+                # the device tiles and the host batch; written after the epoch
+                viz_pending.append((self.iteration, batch_s, batch_t, viz))
             pending.append((self.iteration, metrics))
             self.timer.add_images(batch_s["image"].shape[0])
             batch_idx += 1
@@ -284,6 +290,9 @@ class Trainer:
                 self.writer.add_scalar(f"train/{k}", v, iteration)
             rows.append({"epoch": self.epoch, "iteration": iteration, **m})
         self.csv.write_train_rows(rows)
+        for iteration, b_s, b_t, viz in viz_pending:
+            self._write_train_images(iteration, b_s, b_t,
+                                     {k: v.float().cpu().numpy() for k, v in viz.items()})
 
         dt, ips = self.timer.stop()
         n = max(len(rows), 1)
@@ -300,6 +309,40 @@ class Trainer:
             + f"  {ips:.2f} img/s  time:{dt:.1f}s  loader wait:{1e3 * wait / n:.1f} ms/step"
         )
         return means
+
+    def _write_train_images(self, iteration, batch_s, batch_t, viz):
+        """The reference's every-30-iterations tensorboard image grids
+        (Trainer_prototype_full.py:307-325,519-575; JAX trainer.py:420-453):
+        the batch's first image, per channel, min-max normalized, under the
+        reference's tags. Image and target tiles come from the host batch
+        (uint8 wire batches decoded), the prediction, std and confidence
+        tiles from the step's ``_viz``."""
+        w = self.writer
+        img_s = wire.decode_array("image", batch_s["image"][0])
+        map_s = wire.decode_array("map", batch_s["map"][0])
+        bnd_s = wire.decode_array("boundary", batch_s["boundary"][0])
+        w.add_image("DomainS/image", (img_s + 1.0) * 0.5, iteration)
+        w.add_image("DomainS/target_cup", map_s[..., 0], iteration)
+        w.add_image("DomainS/target_disc", map_s[..., 1], iteration)
+        w.add_image("DomainS/target_boundary", bnd_s[..., 0], iteration)
+        w.add_image("DomainS/prediction_cup", viz["pred_s"][..., 0], iteration)
+        w.add_image("DomainS/prediction_disc", viz["pred_s"][..., 1], iteration)
+        w.add_image("DomainS/prediction_boundary", viz["pred_b_s"][..., 0], iteration)
+        if batch_t is not None and "pred_t" in viz:
+            img_t = wire.decode_array("image", batch_t["image"][0])
+            w.add_image("DomainT/image", (img_t + 1.0) * 0.5, iteration)
+            if "map" in batch_t:
+                map_t = wire.decode_array("map", batch_t["map"][0])
+                w.add_image("DomainT/target_cup", map_t[..., 0], iteration)
+                w.add_image("DomainT/target_disc", map_t[..., 1], iteration)
+            w.add_image("DomainT/prediction_cup", viz["pred_t"][..., 0], iteration)
+            w.add_image("DomainT/prediction_disc", viz["pred_t"][..., 1], iteration)
+            w.add_image("DomainT/boundaryT", viz["bnd_t_raw"][..., 0], iteration)
+        if "std_t" in viz:
+            w.add_image("DomainT/target_cup_std_map", viz["std_t"][..., 0], iteration)
+            w.add_image("DomainT/target_disc_std_map", viz["std_t"][..., 1], iteration)
+            w.add_image("DomainT/mask_0", viz["conf_t"][..., 0], iteration)
+            w.add_image("DomainT/mask_1", viz["conf_t"][..., 1], iteration)
 
     def _start_profile(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -322,6 +365,7 @@ class Trainer:
         tot = {"loss": 0.0, "cup_dice": 0.0, "disc_dice": 0.0, "cup_pa": 0.0,
                "disc_pa": 0.0, "cup_iou": 0.0, "disc_iou": 0.0}
         n_batches = 0
+        val_strips = []
         bs = self.cfg.data.batch_size
         for batch in self.loader_val.epoch(0):
             # pad the final partial batch up to the batch size (repeat the
@@ -337,6 +381,10 @@ class Trainer:
             logits = logits.cpu().numpy()[:n_valid]
             loss = float(np.mean(per_image_loss.cpu().numpy()[:n_valid]))
             map_host = wire.decode_array("map", batch["map"])
+            if self.cfg.run.save_val_images and len(val_strips) < 8:
+                probs = 1.0 / (1.0 + np.exp(-logits[0]))
+                img01 = (wire.decode_array("image", batch["image"][0]) + 1.0) * 0.5
+                val_strips.append(joint_val_image(img01, probs, map_host[0]))
             if not np.isfinite(loss):
                 raise ValueError("loss is nan while validating")
             cup_d, disc_d = dice_coeff_2label(logits, map_host)
@@ -351,6 +399,8 @@ class Trainer:
             n_batches += 1
         for k in tot:
             tot[k] /= max(n_batches, 1)
+        if val_strips:
+            save_val_img(self.cfg.run.out_dir, self.epoch, val_strips)
 
         step = self.epoch * len(self.loader_s)
         self.writer.add_scalar("val_data/loss_CE", tot["loss"], step)

@@ -15,6 +15,10 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
+
+from uda_clr_tpu_torch.data.png import write_png
+
 LOG_HEADERS = [
     "epoch",
     "iteration",
@@ -76,8 +80,9 @@ class CsvLogger:
 
 
 class ScalarWriter:
-    """Tensorboard scalars when tensorboard imports, JSONL
-    (``tensorboard/scalars.jsonl``) otherwise."""
+    """Tensorboard scalars and images when tensorboard imports; otherwise
+    scalars to JSONL (``tensorboard/scalars.jsonl``) and images to PNGs
+    (``tensorboard/images/{tag}_{step}.png``, ``/`` in the tag as ``_``)."""
 
     def __init__(self, out_dir: str):
         log_dir = os.path.join(out_dir, "tensorboard")
@@ -96,6 +101,23 @@ class ScalarWriter:
             self._tb.add_scalar(tag, float(value), step)
         else:
             self._jsonl.write(json.dumps({"tag": tag, "value": float(value), "step": step}) + "\n")
+
+    def add_image(self, tag: str, img, step: int) -> None:
+        """Log an [H,W] / [H,W,1] / [H,W,3] image, min-max normalized to
+        [0,1] like the reference's ``make_grid(..., normalize=True)``
+        (Trainer_prototype_full.py:307-325); a constant image is all 0."""
+        img = np.asarray(img, np.float32)
+        lo, hi = float(img.min()), float(img.max())
+        img = (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
+        if img.ndim == 3 and img.shape[-1] == 1:
+            img = img[..., 0]
+        if self._tb is not None:
+            self._tb.add_image(tag, img, step, dataformats="HWC" if img.ndim == 3 else "HW")
+            return
+        d = os.path.join(os.path.dirname(self._jsonl.name), "images")
+        os.makedirs(d, exist_ok=True)
+        write_png(os.path.join(d, f"{tag.replace('/', '_')}_{step}.png"),
+                  (img * 255).astype(np.uint8))
 
     def close(self) -> None:
         (self._tb or self._jsonl).close()
