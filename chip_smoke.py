@@ -97,9 +97,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and 3 from one artifact, times a request of 8, and runs the payload with
    ``torch.export.load`` in an interpreter that refuses the port;
 15. traces two flagship steps with ``utils/profiling.trace``;
-16. prints a ``kernels`` JSON line (each kernel's launches summed over every
-   path driven above), the card's name and power limit, and as its last
-   line ``{"ok": true, "device": {...}}``.
+16. data parallelism in two ranks on the one card (gloo; processes started
+   with ``subprocess``, never forked after CUDA is up): the
+   ``prototype_full`` prototype-phase step at full width in float32 (TF32
+   and dropout off, 8 + 8 images, T=8) in one process and in two ranks of
+   4 + 4, under ``bn`` and ``tn``, held to each other (the tight losses,
+   running stats, parameters after the step, banks; the ranks bit for bit
+   alike); the flagship's bf16 step timed in two ranks beside the
+   one-process step; ``prototype_mt`` under ``'pallas'`` for two steps in
+   two ranks (K1 and K3 launches per rank, the ranks' K3 masks differ);
+   then the CLI in two ranks, one ``python -m uda_clr_tpu_torch.cli
+   --config`` per rank (full width, bf16, default dropout, a warmup epoch
+   and a prototype-phase epoch): one K1 launch per prototype-phase step per
+   rank, parameters equal bit for bit across ranks, one log.csv and one
+   checkpoint set written by rank 0, and a two-rank resume for one more
+   epoch. Two ranks sharing one card through gloo measure no scaling;
+17. prints a ``kernels`` JSON line (each kernel's launches summed over every
+   path driven above, the data-parallel ranks' included), the card's name
+   and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --dp-only`` builds the kernels and runs step 16
+alone (it prints no result line).
 
 It exits non-zero, with no result line, when there is no CUDA card, when
 the port's package is not beside it, or when any phase fails. float32
@@ -147,6 +165,25 @@ TRAINER_FLAGS = ["--synthetic", "--image-size", "512", "--batch-size", "8", "--b
                  "--wire", "u8", "--warmup-epoch", "0", "--interval-validate", "1"]
 WIRE_KEYS = ("image", "image_s", "image_t", "map", "map_s", "map_t",
              "boundary", "boundary_s", "boundary_t")
+# data parallelism: ranks on the one card, and the metrics of the float32
+# equivalence step by JAX's classification (tests/test_mesh_equivalence.py)
+DP_WORLD = 2
+DP_TIGHT = ("loss_seg", "loss_D", "loss_D2", "loss_adv")
+DP_LOOSE = ("loss_intra", "loss_inter", "loss_all")
+DP_LR = 1e-5  # lr_gen of the equivalence step: Adam's first step moves a parameter by <= lr
+# tolerances of 2 ranks against 1 process at full width on the card, JAX's
+# and the CPU tests' (tests/torch_dp_ranks.py), beside the gaps measured
+# here (chip run 1, PR 8; bn / tn): tight 3.0e-7 / 3.6e-7, loose 9.0e-7 /
+# 3.6e-7, running stats 5.4e-5 / 7.6e-5, parameters' median 0 lr, banks
+# 8.9e-5 / 7.1e-5 (the target bank behind the pseudo-label thresholds; the
+# CPU's 1e-4 left too little margin at full width). A per-rank-moments
+# fault moves the tight losses by ~1e-2 (CPU, 64^2)
+DP_TIGHT_ATOL = 1e-5  # absolute
+DP_LOOSE_ATOL = 2e-2  # absolute
+DP_STATS_RTOL = 3e-4  # of each running stat's largest entry (floor 1e-3)
+DP_PARAM_MEDIAN_LR = 0.2  # median |diff| / lr of the generator's parameters
+DP_BANK_ATOL = 5e-4
+DP_RANK_TIMEOUT = 900  # seconds a rank process may take
 
 
 def fail(msg: str) -> None:
@@ -1347,6 +1384,379 @@ def profiling_phase(torch, np, ports, profiling, mh, K3, tmp: str) -> dict:
     return launches
 
 
+# ---- data parallelism: two ranks on the one card ------------------------
+
+
+def dp_batch(torch, np, rank: int, world: int, device: str = "cuda") -> dict:
+    """This rank's rows of the full-width global batch (8 + 8 at 512^2)."""
+    from uda_clr_tpu_torch.parallel.mesh import local_rows
+
+    arrs = small_batch(np, np.random.default_rng(0), 8, 512)
+    rows = local_rows(8, rank, world)
+    return {k: torch.from_numpy(v[rows].copy()).to(device) for k, v in arrs.items()}
+
+
+def dp_equivalence_step(torch, np, ports, norm: str, rank: int = 0, world: int = 1) -> dict:
+    """One ``prototype_full`` prototype-phase step at full width in float32,
+    dropout off, on this rank's rows; its metrics, the generator's running
+    stats and parameters after the step and the banks, on the CPU."""
+    Config, create_train_state, make_train_step, layers = ports
+    cfg = Config()
+    cfg.method.mc_samples = 8
+    cfg.model.norm = norm
+    from uda_clr_tpu_torch.ops import dropout as K3
+    from uda_clr_tpu_torch.ops import mask_head as mh
+
+    where = f"data-parallel step ({norm}, rank {rank} of {world})"
+    layers.set_dropout_impl("off")
+    try:
+        state = create_train_state(cfg, seed=0, device="cuda")
+        reset_counts(mh, K3)
+        t0 = time.perf_counter()
+        state, m = make_train_step(cfg, "prototype_full", proto_phase=True)(
+            state, dp_batch(torch, np, rank, world), DP_LR, 2.5e-5)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        layers.set_dropout_impl("xla16")
+    check_counts(mh, K3, {"k1": 1, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}, where)
+    take_viz(m, where)
+    check_metrics(m, where)
+    cpu = lambda tree: {k: v.detach().cpu().clone() for k, v in tree.items()}
+    out = {"metrics": {k: float(v) for k, v in m.items()}, "ms": ms,
+           "launches": counts(mh, K3),
+           "buffers": cpu(dict(state.gen.named_buffers())),
+           "params": cpu(dict(state.gen.named_parameters())),
+           "banks": cpu({"proto_src": state.proto_src, "proto_trg": state.proto_trg})}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_flagship_timing(torch, np, ports, mh, K3, rank: int, world: int) -> dict:
+    """The flagship's bf16 step (default dropout) on this rank's rows:
+    1 warmup + 3 prototype-phase steps, one K1 launch per prototype step;
+    the median of steps 1-2."""
+    Config, create_train_state, make_train_step, _ = ports
+    cfg = full_width_cfg(Config)
+    state = create_train_state(cfg, seed=0, device="cuda")
+    batch = dp_batch(torch, np, rank, world)
+    warm = make_train_step(cfg, "prototype_full", proto_phase=False)
+    proto = make_train_step(cfg, "prototype_full", proto_phase=True)
+    reset_counts(mh, K3)
+    state, m = warm(state, batch, 1e-3, 2.5e-5)
+    take_viz(m, f"rank {rank} flagship warmup")
+    step_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = proto(state, batch, 1e-3, 2.5e-5)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        take_viz(m, f"rank {rank} flagship step {i}")
+        check_metrics(m, f"rank {rank} flagship step {i}")
+    check_counts(mh, K3, {"k1": 3, "k2": 0, "k3_fwd": 0, "k3_bwd": 0},
+                 f"rank {rank} flagship (bf16, 'xla16')")
+    del state
+    torch.cuda.empty_cache()
+    return {"ms": statistics.median(step_ms[1:]), "launches": counts(mh, K3)}
+
+
+def dp_pallas_steps(torch, np, ports, mh, K3, rank: int, world: int) -> dict:
+    """``prototype_mt`` under the fused dropout kernel, 2 prototype-phase
+    steps at full width (bf16) on this rank's rows: K1 once and K3 at 8
+    forward and 4 backward sites per step; the keep mask of the first K3
+    launch of each step, drawn again from its seed on a tensor of ones
+    (that launch is uncounted), as a digest."""
+    import hashlib
+
+    Config, create_train_state, make_train_step, layers = ports
+    cfg = full_width_cfg(Config)
+    state = create_train_state(cfg, seed=0, device="cuda", method="prototype_mt")
+    batch = dp_batch(torch, np, rank, world)
+    step = make_train_step(cfg, "prototype_mt", proto_phase=True)
+    launched, real = [], K3.launch
+
+    def spy(x, seed, rate):
+        launched.append((tuple(x.shape), x.dtype, seed, rate))
+        return real(x, seed, rate)
+
+    sites = K3_SITES_PER_FORWARD
+    layers.set_dropout_impl("pallas")
+    K3.launch = spy
+    reset_counts(mh, K3)
+    firsts = []
+    try:
+        for i in range(2):
+            del launched[:]
+            state, m = step(state, batch, 1e-3, 2.5e-5)
+            torch.cuda.synchronize()
+            take_viz(m, f"rank {rank} prototype_mt 'pallas' step {i}")
+            check_metrics(m, f"rank {rank} prototype_mt 'pallas' step {i}")
+            firsts.append(launched[0])
+            check_counts(mh, K3, {"k1": i + 1, "k2": 0, "k3_fwd": (i + 1) * 2 * sites,
+                                  "k3_bwd": (i + 1) * sites},
+                         f"rank {rank} prototype_mt 'pallas' step {i}")
+    finally:
+        K3.launch = real
+        layers.set_dropout_impl("xla16")
+    launches = counts(mh, K3)
+    digests = []
+    for shape, dtype, seed, rate in firsts:
+        keep = real(torch.ones(shape, dtype=dtype, device="cuda"), seed, rate) != 0
+        digests.append(hashlib.sha256(np.packbits(keep.cpu().numpy()).tobytes()).hexdigest())
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "mask_digests": digests,
+            "keep_share": float(keep.float().mean())}
+
+
+def dp_rank(spec: dict) -> None:
+    """A rank of the data-parallel phase (``chip_smoke.py --dp-rank JSON``):
+    joins the gloo group, runs the float32 equivalence step under bn and
+    tn, the bf16 flagship timing and ``prototype_mt`` under 'pallas' on its
+    rows, and writes the results to ``spec['out']``."""
+    import numpy as np
+    import torch
+
+    from uda_clr_tpu_torch.config import Config
+    from uda_clr_tpu_torch.models import layers
+    from uda_clr_tpu_torch.ops import dropout as K3
+    from uda_clr_tpu_torch.ops import mask_head as mh
+    from uda_clr_tpu_torch.parallel import distributed as dist_lib
+    from uda_clr_tpu_torch.train.state import create_train_state
+    from uda_clr_tpu_torch.train.steps import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = spec["rank"], spec["world"]
+    ports = (Config, create_train_state, make_train_step, layers)
+    dist_lib.initialize(spec["init"], world, rank, backend="gloo", device="cuda")
+    try:
+        torch.cuda.set_device(dist_lib.rank_device("cuda"))
+        out = {"equivalence": {norm: dp_equivalence_step(torch, np, ports, norm, rank, world)
+                               for norm in ("bn", "tn")}}
+        out["flagship"] = dp_flagship_timing(torch, np, ports, mh, K3, rank, world)
+        out["pallas"] = dp_pallas_steps(torch, np, ports, mh, K3, rank, world)
+        dist_lib.barrier()
+    finally:
+        dist_lib.shutdown()
+    torch.save(out, spec["out"])
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(commands: list, tmp: str, name: str) -> list:
+    """Start one process per rank (``commands[r]``), all at once, and wait;
+    a rank that exits non-zero fails the phase (the others are stopped).
+    Returns each rank's standard output."""
+    logs = [os.path.join(tmp, f"{name}_rank{r}.log") for r in range(len(commands))]
+    procs = []
+    for cmd, log in zip(commands, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                          cwd=os.path.dirname(os.path.abspath(__file__))))
+    deadline = time.monotonic() + DP_RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            dead = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if dead or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outputs = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as f:
+            outputs.append(f.read())
+        if p.returncode != 0:
+            fail(f"{name}: rank {r} exited with {p.returncode}:\n{outputs[r][-4000:]}")
+    return outputs
+
+
+def dp_compare(single: dict, ranks: list, norm: str) -> dict:
+    """The ranks' equivalence step against the one-process step: every gap,
+    failing on one past its tolerance; the ranks must agree bit for bit."""
+    import torch
+
+    where = f"data-parallel equivalence ({norm})"
+    r0 = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        if res["metrics"] != r0["metrics"]:
+            fail(f"{where}: rank {r}'s metrics differ from rank 0's")
+        for part in ("params", "buffers", "banks"):
+            if any(not torch.equal(res[part][k], r0[part][k]) for k in r0[part]):
+                fail(f"{where}: rank {r}'s {part} differ from rank 0's")
+    if set(single["metrics"]) != set(DP_TIGHT + DP_LOOSE) or set(r0["metrics"]) != set(
+            single["metrics"]):
+        fail(f"{where}: metrics {sorted(r0['metrics'])} vs {sorted(single['metrics'])}")
+    gaps = {}
+    for keys, tol in ((DP_TIGHT, DP_TIGHT_ATOL), (DP_LOOSE, DP_LOOSE_ATOL)):
+        for k in keys:
+            gaps[k] = abs(single["metrics"][k] - r0["metrics"][k])
+            say(f"{where} {k}: one process {single['metrics'][k]:.8g}, 2 ranks "
+                f"{r0['metrics'][k]:.8g}, gap {gaps[k]:.3e} (tolerance {tol:g})")
+            if not gaps[k] <= tol:
+                fail(f"{where}: {k} gap {gaps[k]:.3e} > {tol:g}")
+    gaps["stats"] = max(float((v - r0["buffers"][k]).abs().max()) / max(float(v.abs().max()), 1e-3)
+                        for k, v in single["buffers"].items())
+    d = torch.cat([(v - r0["params"][k]).abs().flatten() for k, v in single["params"].items()])
+    gaps["params_median_lr"] = float(d.median()) / DP_LR
+    gaps["params_max_lr"] = float(d.max()) / DP_LR
+    gaps["banks"] = max(float((v - r0["banks"][k]).abs().max()) for k, v in single["banks"].items())
+    say(f"{where}: running stats {gaps['stats']:.3e} of their largest entry (tolerance "
+        f"{DP_STATS_RTOL:g}); parameters median {gaps['params_median_lr']:.3g} lr (tolerance "
+        f"{DP_PARAM_MEDIAN_LR:g}), largest {gaps['params_max_lr']:.3g} lr (Adam's first step: "
+        f"<= 2); banks {gaps['banks']:.3e} (tolerance {DP_BANK_ATOL:g})")
+    if not gaps["stats"] <= DP_STATS_RTOL:
+        fail(f"{where}: running stats gap {gaps['stats']:.3e}")
+    if not gaps["params_median_lr"] <= DP_PARAM_MEDIAN_LR or not gaps["params_max_lr"] <= 2.01:
+        fail(f"{where}: parameters gap {gaps['params_median_lr']:.3g} / "
+             f"{gaps['params_max_lr']:.3g} lr")
+    if not gaps["banks"] <= DP_BANK_ATOL:
+        fail(f"{where}: banks gap {gaps['banks']:.3e}")
+    return gaps
+
+
+def dp_trainer_yaml(build_config, tmp: str, rank: int, port: int, max_epoch: int) -> str:
+    """Rank ``rank``'s ``--config`` YAML of the two-rank CLI run."""
+    cfg = build_config(TRAINER_FLAGS + ["--max-epoch", str(max_epoch)])
+    cfg.data.synthetic_size = 16  # 2 global steps of 8 + 8 per epoch
+    cfg.method.warmup_epoch = 0  # epoch 0 warmup, then the prototype phase
+    cfg.run.checkpoint_every = 1
+    cfg.run.dist_coordinator = f"localhost:{port}"
+    cfg.run.dist_num_processes, cfg.run.dist_process_id = DP_WORLD, rank
+    cfg.run.dist_backend = "gloo"  # nccl refuses two ranks on one card
+    path = os.path.join(tmp, f"trainer_rank{rank}_{max_epoch}.yaml")
+    with open(path, "w") as f:
+        f.write(cfg.to_yaml())
+    return path
+
+
+def dp_summaries(outputs: list, where: str) -> list:
+    summaries = []
+    for r, text in enumerate(outputs):
+        lines = [l for l in text.splitlines() if l.startswith("rank summary: ")]
+        if len(lines) != 1:
+            fail(f"{where}: rank {r} printed {len(lines)} summary lines:\n{text[-3000:]}")
+        summaries.append(json.loads(lines[0][len("rank summary: "):]))
+    for r, s in enumerate(summaries):
+        if s["rank"] != r or s["world"] != DP_WORLD or s["replica_gap"] != 0.0:
+            fail(f"{where}: rank {r}'s summary {s}")
+    return summaries
+
+
+def dp_trainer_phase(build_config, headers, tmp: str) -> dict:
+    """The CLI in two ranks on the card, one ``python -m
+    uda_clr_tpu_torch.cli --config`` per rank: 2 epochs (warmup, prototype
+    phase), then a two-rank resume for a third. Returns the launches and
+    the ranks' step ms and loader wait of the prototype-phase epochs."""
+    run = os.path.join(tmp, "dp_run")
+    total = {"k1": 0, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
+    stats = []
+    for max_epoch, extra in ((2, []), (3, ["--resume", os.path.join(run, "checkpoints")])):
+        port = free_port()
+        commands = [[sys.executable, "-m", "uda_clr_tpu_torch.cli", "--config",
+                     dp_trainer_yaml(build_config, tmp, r, port, max_epoch), "--out", run,
+                     *extra] for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        where = f"data-parallel CLI to epoch {max_epoch}"
+        summaries = dp_summaries(run_ranks(commands, tmp, f"trainer{max_epoch}"), where)
+        say(f"{where}: {time.perf_counter() - t0:.1f} s for both ranks")
+        want_epochs = [0, 1] if not extra else [2]
+        for r, s in enumerate(summaries):
+            epochs = s["epochs"]
+            if [e["epoch"] for e in epochs] != want_epochs:
+                fail(f"{where}: rank {r} trained epochs {[e['epoch'] for e in epochs]}")
+            proto_steps = sum(e["steps"] for e in epochs if e["proto_phase"])
+            if s["launches"] != {"k1": proto_steps, "k3_fwd": 0, "k3_bwd": 0}:
+                fail(f"{where}: rank {r} launches {s['launches']}, want one K1 launch per "
+                     f"prototype-phase step ({proto_steps})")
+            total["k1"] += s["launches"]["k1"]
+            for e in epochs:
+                phase = "prototype phase" if e["proto_phase"] else "warmup"
+                say(f"{where} rank {r} epoch {e['epoch']} ({phase}): wall "
+                    f"{1e3 * e['seconds'] / e['steps']:.1f} ms/step, {e['img_per_s']:.2f} img/s "
+                    f"(global), loader wait {1e3 * e['loader_wait_s'] / e['steps']:.1f} ms/step, "
+                    f"peak {e['peak_gib'] or 0.0:.2f} GiB")
+                if e["proto_phase"]:
+                    stats.append({"rank": r, "epoch": e["epoch"],
+                                  "ms": 1e3 * e["seconds"] / e["steps"],
+                                  "wait_ms": 1e3 * e["loader_wait_s"] / e["steps"],
+                                  "img_per_s": e["img_per_s"]})
+    # one writer: one log.csv (the header, 2 steps + 1 validation per epoch,
+    # 3 epochs), one checkpoint set, no stray file
+    with open(os.path.join(run, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    train = [r for r in rows[1:] if r[2]]
+    if rows[0] != headers or len(rows) != 1 + 3 * 3 or [int(r[1]) for r in train] != list(range(6)):
+        fail(f"data-parallel CLI: log.csv has {len(rows)} rows, train iterations "
+             f"{[r[1] for r in train]}")
+    want = sorted(f"checkpoint_{e}.{x}" for e in (1, 2, 3) for x in ("meta.json", "pth.tar"))
+    if sorted(os.listdir(os.path.join(run, "checkpoints"))) != want:
+        fail(f"data-parallel CLI: checkpoints {sorted(os.listdir(os.path.join(run, 'checkpoints')))}")
+    say(f"data-parallel CLI: one log.csv ({len(rows)} rows) and one checkpoint set {want}, "
+        f"written by rank 0; parameters equal bit for bit across ranks after each run")
+    return {"launches": total, "stats": stats}
+
+
+def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: str) -> dict:
+    """Data parallelism in two gloo ranks on the one card (module docstring,
+    step 16). Returns the launches of every rank's main paths."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        single = {norm: dp_equivalence_step(torch, np, ports, norm) for norm in ("bn", "tn")}
+        init = f"file://{os.path.join(tmp, 'dist_init')}"
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+        commands = [[sys.executable, os.path.abspath(__file__), "--dp-rank", json.dumps(
+            {"rank": r, "world": DP_WORLD, "init": init, "out": outs[r]})]
+            for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        run_ranks(commands, tmp, "steps")
+        say(f"data-parallel steps: {time.perf_counter() - t0:.1f} s for both ranks")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        for norm in ("bn", "tn"):
+            dp_compare(single[norm], [r["equivalence"][norm] for r in ranks], norm)
+        digests = [r["pallas"]["mask_digests"] for r in ranks]
+        for i in range(2):
+            if digests[0][i] == digests[1][i]:
+                fail(f"prototype_mt 'pallas' step {i}: the ranks drew the same K3 mask")
+        say(f"prototype_mt 'pallas' in {DP_WORLD} ranks: launches per rank "
+            f"{[r['pallas']['launches'] for r in ranks]}; first K3 mask per step differs "
+            f"between the ranks ({[d[:12] for d in digests]}), keep share "
+            f"{ranks[0]['pallas']['keep_share']:.4f}")
+        trainer = dp_trainer_phase(build_config, headers, tmp)
+        runs = [*single.values()] + [r["equivalence"][n] for r in ranks for n in ("bn", "tn")] \
+            + [r[part] for r in ranks for part in ("flagship", "pallas")]
+        launches = {k: sum(run["launches"][k] for run in runs) + trainer["launches"][k]
+                    for k in ("k1", "k2", "k3_fwd", "k3_bwd")}
+        rank_ms = [r["flagship"]["ms"] for r in ranks]
+        beside = "not measured in this run" if flagship_ms is None else (
+            f"{flagship_ms:.2f} ms for 8 + 8 ({8 / (flagship_ms / 1e3):.2f} img/s)")
+        say(f"data-parallel flagship step (bf16, 'xla16'; {card}): rank medians "
+            f"{', '.join(f'{ms:.2f}' for ms in rank_ms)} ms for 4 + 4 images each, "
+            f"{8 / (max(rank_ms) / 1e3):.2f} global img/s (source images), beside the "
+            f"one-process step: {beside}. Two ranks share one card through gloo: not a "
+            f"scaling figure")
+        for s in trainer["stats"]:
+            say(f"data-parallel CLI prototype-phase epoch {s['epoch']} rank {s['rank']}: "
+                f"{s['ms']:.1f} ms/step, loader wait {s['wait_ms']:.1f} ms/step, "
+                f"{s['img_per_s']:.2f} global img/s ({card}; two ranks on one card)")
+        say(f"data-parallel phase launches (all ranks): {launches}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_counts(mh, K3, expect: dict, where: str) -> None:
     got = counts(mh, K3)
     if got != expect:
@@ -1427,6 +1837,10 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {lib.source.name}: {line.strip()}")
 
+    if "--dp-only" in sys.argv[1:]:
+        dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, None, card)
+        say("chip_smoke --dp-only: the data-parallel phase passed")
+        return
     mask_numbers = kernel_phase(torch, mh, batch_moments, kernel_seed)
     k3_numbers = dropout_phase(torch, F, K3)
     small_parity_phase(torch, np, ports)
@@ -1528,10 +1942,11 @@ def main() -> None:
         profiled = profiling_phase(torch, np, ports, profiling, mh, K3, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    dp = dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, flagship_ms, card)
     # each kernel's launches over every path this run drove
     paths = (flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, *backbone_paths, remat,
              bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
-             profiled)
+             profiled, dp)
     launched = {k: sum(p[k] for p in paths) for k in flagship}
     say(f"launches over the paths: {launched}")
 
@@ -1563,4 +1978,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(json.loads(sys.argv[2]))
+    else:
+        main()

@@ -6,8 +6,9 @@ refuses to import those imports every port module and chip_smoke.py, runs
 one ``train_transforms(64, wire="u8")`` sample (through the native
 library) and ``build_config([])``, builds a TransNorm model and a model on
 each of the other three backbones, evaluates a model over two synthetic
-images with postprocessing and contour overlays, and writes a heatmap, a
-validation strip and a scalar image.
+images with postprocessing and contour overlays, writes a heatmap, a
+validation strip and a scalar image, and runs data parallelism's
+collectives and checks in one process (parallel/).
 Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
@@ -74,6 +75,14 @@ writer.add_image('a/b', np.ones((8, 8)), 1)
 writer.close()
 assert read_png(tmp + '/tensorboard/images/a_b_1.png')[0].shape == (8, 8, 1)
 assert read_png(tmp + '/overlay/' + sample['img_name'].split('.')[0] + '.png')[0].shape[2] == 3
+import torch
+from uda_clr_tpu_torch.parallel import distributed, mesh, reduce
+assert distributed.world_size() == 1 and distributed.rank_device('cpu').type == 'cpu'
+mesh.check_mesh((1,), 1)
+x = torch.ones(3)
+m = {'a': x[0]}
+assert reduce.all_sum(x) is x and reduce.mean_metrics(m) is m
+assert reduce.replica_gap([x], torch.device('cpu')) == 0.0
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.')
              or m == 'flax' or m.startswith('flax.')
@@ -90,7 +99,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.splitlines()[-2:]  # the probe's last two lines
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 54
+    assert int(count) == len(modules) + 1 >= 58
     assert bad == "", f"the port loaded: {bad}"
 
 

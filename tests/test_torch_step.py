@@ -19,7 +19,13 @@ steps: their size is lr wherever a gradient is nonzero, and their sign is
 noise where the true gradient is ~0 (the biases of batch norms that feed
 another batch norm; tests/test_step_parity.py:115-121), so lr_gen is 1e-5
 and the G params are held by the median of their difference in units of
-lr (a missing or wrong update moves the median to ~lr)."""
+lr (a missing or wrong update moves the median to ~lr).
+
+The first iteration is also run by the port in two gloo ranks (one source
+and one target image each, tests/torch_dp_ranks.py) and held to the same
+JAX step with the same tolerances: data parallelism's global moments,
+pools and averaged gradients against JAX's single-device step. The JAX
+iterations run once for the file."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_dp_ranks as dp
 from tests.test_torch_models import to_np
 from tests.torch_step_harness import check_viz, jax_train_state, two_threads  # noqa: F401
 from uda_clr_tpu.config import Config as JaxConfig
@@ -101,66 +108,107 @@ def dropout_off():
     port_layers.set_dropout_impl(prev[1])
 
 
-def test_prototype_full_steps_match_jax(dropout_off):
-    jcfg = JaxConfig()
-    jcfg.model.compute_dtype = "float32"
-    jcfg.method.mc_samples = T
-    jcfg.method.rng_impl = "threefry2x32"  # rbg keys are TPU-only
-    model = JaxDeepLab(num_classes=2, backbone="mobilenet", output_stride=16, norm="bn")
-    jstate = jax_train_state(model)
-    params = to_np(jstate.gen_params)
-    params["decoder"]["mask_out"]["conv"]["kernel"] *= 10.0
-    jstate = jstate.replace(gen_params=jax.tree.map(jnp.asarray, params))
+PHASES = (True, True, False)  # prototype phase per iteration
 
-    cfg = Config()
-    cfg.method.mc_samples = T
-    state = create_train_state(
-        cfg, seed=0, device="cpu",
-        gen_state_dict=deeplab_state_dict(params, to_np(jstate.gen_stats)),
-        dis_state_dict=discriminator_state_dict(to_np(jstate.dis_params)),
-        dis2_state_dict=discriminator_state_dict(to_np(jstate.dis2_params)),
-    )
 
-    rng = np.random.default_rng(7)
-    for it, proto in enumerate((True, True, False)):
-        batch = _batch(rng)
-        jstate, want = jax_make_train_step(model, jcfg, "prototype_full", proto_phase=proto)(
-            jstate, {k: jnp.asarray(v) for k, v in batch.items()}, LR_GEN, LR_DIS, 30)
-        state, got = make_train_step(cfg, "prototype_full", proto_phase=proto)(
-            state, {k: torch.from_numpy(v) for k, v in batch.items()}, LR_GEN, LR_DIS)
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX steps, once for the file: the converted port state_dicts of
+    the start, and per iteration its batch, metrics and state after."""
+    prev = jax_layers._DROPOUT_IMPL
+    jax_layers.set_dropout_impl("off")
+    try:
+        jcfg = JaxConfig()
+        jcfg.model.compute_dtype = "float32"
+        jcfg.method.mc_samples = T
+        jcfg.method.rng_impl = "threefry2x32"  # rbg keys are TPU-only
+        model = JaxDeepLab(num_classes=2, backbone="mobilenet", output_stride=16, norm="bn")
+        jstate = jax_train_state(model)
+        params = to_np(jstate.gen_params)
+        params["decoder"]["mask_out"]["conv"]["kernel"] *= 10.0
+        jstate = jstate.replace(gen_params=jax.tree.map(jnp.asarray, params))
+        start = dict(gen_state_dict=deeplab_state_dict(params, to_np(jstate.gen_stats)),
+                     dis_state_dict=discriminator_state_dict(to_np(jstate.dis_params)),
+                     dis2_state_dict=discriminator_state_dict(to_np(jstate.dis2_params)))
+        rng = np.random.default_rng(7)
+        iterations = []
+        for proto in PHASES:
+            batch = _batch(rng)
+            jstate, want = jax_make_train_step(model, jcfg, "prototype_full", proto_phase=proto)(
+                jstate, {k: jnp.asarray(v) for k, v in batch.items()}, LR_GEN, LR_DIS, 30)
+            # host copies: the next step donates this state's buffers
+            iterations.append((batch, jax.device_get(want), jax.device_get(jstate)))
+    finally:
+        jax_layers.set_dropout_impl(prev)
+    return start, iterations
 
-        check_viz(got.pop("_viz"), want["_viz"], it)
-        assert set(got) == set(LOSSES + (PROTO_LOSSES if proto else ()))
-        for k in LOSSES:
-            np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=LOSS_RTOL[it],
-                                       err_msg=f"iter {it}: {k}")
-        if proto:
-            for k in PROTO_LOSSES:
-                np.testing.assert_allclose(got[k].item(), float(want[k]),
-                                           rtol=PROTO_LOSS_RTOL[it], err_msg=f"iter {it}: {k}")
-            for name in ("proto_src", "proto_trg"):
-                np.testing.assert_allclose(getattr(state, name).numpy(),
-                                           np.asarray(getattr(jstate, name)),
-                                           rtol=0, atol=BANK_ATOL[it], err_msg=f"iter {it}: {name}")
-            assert bool(state.proto_src_init) and bool(jstate.proto_src_init)
-    assert state.step == int(jstate.step) == 3
 
-    def close(got, want, rtol, what):
-        err = np.abs(got - want).max() / np.abs(want).max()
-        assert err <= rtol, f"{what}: max diff {err:.2e} of the largest entry > {rtol}"
+def _check_losses(got, want, it, proto):
+    assert set(got) == set(LOSSES + (PROTO_LOSSES if proto else ()))
+    for k in LOSSES:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=LOSS_RTOL[it],
+                                   err_msg=f"iter {it}: {k}")
+    for k in PROTO_LOSSES if proto else ():
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=PROTO_LOSS_RTOL[it],
+                                   err_msg=f"iter {it}: {k}")
 
-    sd = state.gen.state_dict()
+
+def _check_banks(banks, jstate, it):
+    for name in ("proto_src", "proto_trg"):
+        np.testing.assert_allclose(banks[name].numpy(), np.asarray(getattr(jstate, name)),
+                                   rtol=0, atol=BANK_ATOL[it], err_msg=f"iter {it}: {name}")
+
+
+def _close(got, want, rtol, what):
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= rtol, f"{what}: max diff {err:.2e} of the largest entry > {rtol}"
+
+
+def _check_params(sd, jstate):
     for key, path in G_PARAMS:
         want = np.asarray(_get(jstate.gen_params, path)).transpose(3, 2, 0, 1)
-        close(sd[key].numpy(), want, PARAM_RTOL, key)
+        _close(sd[key].numpy(), want, PARAM_RTOL, key)
         median = np.median(np.abs(sd[key].numpy() - want)) / LR_GEN
         assert median <= PARAM_MEDIAN_LR, f"{key}: median diff {median:.3f} lr"
     for key, path in BN_STATS:
         node = _get(jstate.gen_stats, path)
         for ours, theirs in (("running_mean", "mean"), ("running_var", "var")):
-            close(sd[f"{key}.{ours}"].numpy(), np.asarray(node[theirs]), STATS_RTOL,
-                  f"{key}.{ours}")
+            _close(sd[f"{key}.{ours}"].numpy(), np.asarray(node[theirs]), STATS_RTOL,
+                   f"{key}.{ours}")
+
+
+def test_prototype_full_steps_match_jax(dropout_off, jax_run):
+    start, iterations = jax_run
+    cfg = Config()
+    cfg.method.mc_samples = T
+    state = create_train_state(cfg, seed=0, device="cpu", **start)
+
+    for it, (proto, (batch, want, jstate)) in enumerate(zip(PHASES, iterations)):
+        state, got = make_train_step(cfg, "prototype_full", proto_phase=proto)(
+            state, {k: torch.from_numpy(v) for k, v in batch.items()}, LR_GEN, LR_DIS)
+
+        check_viz(got.pop("_viz"), want["_viz"], it)
+        _check_losses(got, want, it, proto)
+        if proto:
+            _check_banks({"proto_src": state.proto_src, "proto_trg": state.proto_trg}, jstate, it)
+            assert bool(state.proto_src_init) and bool(jstate.proto_src_init)
+    assert state.step == int(jstate.step) == 3
+
+    _check_params(state.gen.state_dict(), jstate)
     for dis, jparams in ((state.dis, jstate.dis_params), (state.dis2, jstate.dis2_params)):
         for i in (1, 5):
             want = np.asarray(_get(jparams, (f"conv{i}", "conv", "kernel"))).transpose(3, 2, 0, 1)
-            close(getattr(dis, f"conv{i}").weight.detach().numpy(), want, DIS_RTOL, f"conv{i}")
+            _close(getattr(dis, f"conv{i}").weight.detach().numpy(), want, DIS_RTOL, f"conv{i}")
+
+
+def test_two_ranks_first_iteration_matches_jax(jax_run, tmp_path):
+    """Two gloo ranks, each with one source and one target image, against
+    JAX's single-device step on both: the losses, the banks, the G params
+    and running stats after the step, at iteration 0's tolerances."""
+    start, iterations = jax_run
+    batch, want, jstate = iterations[0]
+    ranks = dp.spawn(dp.flagship_step, tmp_path, (start, batch, T, LR_GEN, LR_DIS))
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    _check_losses(ranks[0]["metrics"], want, 0, True)
+    _check_banks(ranks[0]["banks"], jstate, 0)
+    _check_params(ranks[0]["gen"], jstate)

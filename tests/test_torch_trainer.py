@@ -233,26 +233,43 @@ def test_other_methods_train_an_epoch(method, keys, tmp_path):
     assert trainer.state.step == 1
 
 
-@pytest.mark.parametrize("change, match", [
-    (lambda c: setattr(c.run, "dist_coordinator", "localhost:1234"), "A12"),
-    (lambda c: setattr(c.run, "mesh_shape", (2,)), "A12"),
-    (lambda c: setattr(c.run, "initial_resume", "runs/x/checkpoints/checkpoint_3"), "orbax"),
-    (lambda c: setattr(c.run, "dist_num_processes", 2), "A12"),
+def _two_ranks_on_cpu_with_nccl(c):
+    c.run.dist_coordinator, c.run.dist_num_processes = "localhost:1234", 2
+    c.run.dist_backend = "nccl"
+
+
+@pytest.mark.parametrize("change, error, match", [
+    # data parallelism is ported since; these cases keep their ids and now
+    # hold its configuration errors, raised before any process group forms:
+    # nccl without a card names the gloo backend
+    pytest.param(_two_ranks_on_cpu_with_nccl, ValueError, "dist_backend: gloo",
+                 id="change0-A12"),
+    # a mesh wider than the (one-process) group names the dist_* fields
+    pytest.param(lambda c: setattr(c.run, "mesh_shape", (2,)), ValueError,
+                 "dist_num_processes", id="change1-A12"),
+    pytest.param(lambda c: setattr(c.run, "initial_resume", "runs/x/checkpoints/checkpoint_3"),
+                 NotImplementedError, "orbax", id="change2-orbax"),
+    # several processes without a coordinator name it
+    pytest.param(lambda c: setattr(c.run, "dist_num_processes", 2), ValueError,
+                 "dist_coordinator", id="change3-A12"),
     # ported since: the Trainer builds with it (its strips are held in
     # tests/test_torch_images.py); the case keeps its id
-    pytest.param(lambda c: setattr(c.run, "save_val_images", True), None,
+    pytest.param(lambda c: setattr(c.run, "save_val_images", True), None, None,
                  id="change4-save_val_images"),
+    # not ported: the spatial mesh names its ROADMAP item
+    pytest.param(lambda c: setattr(c.run, "mesh_shape", (4, 2)), NotImplementedError,
+                 "ROADMAP", id="spatial_mesh"),
 ])
-def test_out_of_slice_options_raise(change, match, tmp_path):
-    """Options the port has not ported raise naming what to do; a ported
-    one (``match`` None) builds."""
+def test_out_of_slice_options_raise(change, error, match, tmp_path):
+    """Options the port has not ported, and configurations it refuses,
+    raise naming what to do; a ported one (``error`` None) builds."""
     cfg = _small_cfg(1)
     cfg.run.out_dir = str(tmp_path)
     change(cfg)
-    if match is None:
+    if error is None:
         Trainer(cfg, device="cpu").close()
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 
 

@@ -10,11 +10,22 @@ Examples:
   # the flagship method at full width on the card
   python -m uda_clr_tpu_torch.cli --synthetic --image-size 512 --batch-size 8 \\
       --bf16 --wire u8 --max-epoch 3 --out runs/flagship
+
+  # data parallelism: one command per rank, each with a --config whose run
+  # section sets dist_coordinator (host:port of rank 0), dist_num_processes,
+  # its dist_process_id and, for several ranks on one card, dist_backend gloo
+  python -m uda_clr_tpu_torch.cli --config rank0.yaml &
+  python -m uda_clr_tpu_torch.cli --config rank1.yaml
+
+Across processes each rank prints, after training, one line
+``rank summary: {json}`` with its epochs' stats, its kernel launches and
+the parameters' largest difference from rank 0's (0.0).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 
 from uda_clr_tpu_torch.config import Config
 
@@ -146,10 +157,21 @@ def main(argv=None):
     """Build the config, train, and return the Trainer (its
     ``epoch_stats`` hold each epoch's time, throughput and loader wait)."""
     args = _parser().parse_args(argv)
+    from uda_clr_tpu_torch.ops import dropout, mask_head
+    from uda_clr_tpu_torch.parallel import distributed as dist_lib
     from uda_clr_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(_build(args), device=args.device)
-    trainer.train()
+    try:
+        trainer = Trainer(_build(args), device=args.device)
+        trainer.train()
+        if trainer.world > 1:
+            print("rank summary: " + json.dumps({
+                "rank": trainer.rank, "world": trainer.world, "epochs": trainer.epoch_stats,
+                "replica_gap": trainer.replica_gap,
+                "launches": {"k1": mask_head.LAUNCHES, "k3_fwd": dropout.LAUNCHES_FWD,
+                             "k3_bwd": dropout.LAUNCHES_BWD}}), flush=True)
+    finally:
+        dist_lib.shutdown()
     return trainer
 
 

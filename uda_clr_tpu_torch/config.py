@@ -6,6 +6,10 @@ The YAML goes through :mod:`uda_clr_tpu_torch.utils.miniyaml`, which reads
 and writes the subset the repo's config files use, as PyYAML's ``safe_load``
 and ``safe_dump`` do; the port needs no PyYAML. ``ModelConfig.dtype`` is the
 port's torch compute dtype (a property, not a field).
+
+``RunConfig.dist_backend`` is the port's own field; ``to_dict`` (and so the
+YAML) leaves it out while it is None, so a run directory's ``config.yaml``
+stays readable by the JAX package's ``Config``.
 """
 
 from __future__ import annotations
@@ -113,13 +117,24 @@ class RunConfig:
     seed: int = 1337
     resume: Optional[str] = None
     initial_resume: Optional[str] = None  # BEAL warm-start checkpoint
-    mesh_shape: Optional[tuple] = None  # port: one device
-    dist_coordinator: Optional[str] = None  # port: not yet
+    mesh_shape: Optional[tuple] = None  # None, (1,) or (dist_num_processes,)
+    # data parallelism across processes (parallel/distributed.py), one per
+    # device: dist_coordinator "host:port" of rank 0 (or a file:// URL)
+    # enables it; each process loads 1/dist_num_processes of every global
+    # batch
+    dist_coordinator: Optional[str] = None
     dist_num_processes: int = 1
     dist_process_id: int = 0
+    # the port's own: None = nccl on CUDA, gloo on the CPU; 'gloo' for
+    # several ranks on one card (nccl refuses them)
+    dist_backend: Optional[str] = None
     profile: bool = False
     save_val_images: bool = False  # joint [img|gt|cup|disc] strips per validation
     viz_every: int = 30  # train-time image grids every N iterations (0 = off)
+
+
+# (section, field) of the port's own fields, written only when set
+_PORT_ONLY = (("run", "dist_backend"),)
 
 
 @dataclass
@@ -131,7 +146,11 @@ class Config:
     run: RunConfig = field(default_factory=RunConfig)
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        for section, key in _PORT_ONLY:
+            if d[section][key] is None:
+                del d[section][key]
+        return d
 
     def to_yaml(self) -> str:
         return miniyaml.dump(self.to_dict())

@@ -11,7 +11,10 @@ Two worker models:
 
 A background producer thread keeps a bounded queue of ready batches, and
 the per-sample augmentation rng is derived from ``(seed, epoch, batch, j)``,
-so both backends and any worker count give bit-identical streams.
+so both backends and any worker count give bit-identical streams. Under
+data parallelism (``process_index``/``process_count``) ``j`` is the
+sample's position in the global batch, so the union of the ranks' streams
+is the single-process stream bit for bit.
 
 Fork caveat: the workers are forked from a parent that may hold a CUDA
 context. They touch numpy and scipy only, never torch, and the datasets
@@ -77,11 +80,34 @@ class BatchLoader:
         num_workers: int = 2,
         prefetch: int = 2,
         backend: str = "thread",
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        """``process_index``/``process_count``: data parallelism across
+        processes (parallel/distributed.py). Every process derives the same
+        global epoch order and batch composition from the shared seed, then
+        loads only its ``batch_size // process_count`` slice of each global
+        batch; per-sample rngs stay keyed by the global position
+        ``(seed, epoch, bi, global_j)``."""
         if backend not in ("thread", "process"):
             raise ValueError(
                 f"BatchLoader backend must be 'thread' or 'process', got {backend!r}"
             )
+        if process_count > 1:
+            if batch_size % process_count:
+                raise ValueError(
+                    f"global batch_size {batch_size} must divide evenly over "
+                    f"{process_count} processes"
+                )
+            if not drop_last:
+                raise ValueError(
+                    "process-sharded loading requires drop_last=True "
+                    "(a partial final batch cannot split evenly)"
+                )
+            if not 0 <= process_index < process_count:
+                raise ValueError(
+                    f"process_index {process_index} out of range [0, {process_count})"
+                )
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -90,6 +116,8 @@ class BatchLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.backend = backend
+        self.process_index = process_index
+        self.process_count = process_count
 
     def __len__(self):
         n = len(self.dataset)
@@ -133,12 +161,17 @@ class BatchLoader:
                     continue
             return False
 
+        per = self.batch_size // self.process_count
+        lo = self.process_index * per
+
         def _run(map_samples):
             for bi in range(start, len(batches)):
                 if stop.is_set():
                     return False
                 idx = batches[bi]
-                keys = [(self.seed, epoch, bi, j) for j in range(len(idx))]
+                if self.process_count > 1:
+                    idx = idx[lo : lo + per]
+                keys = [(self.seed, epoch, bi, lo + j) for j in range(len(idx))]
                 if not _put(collate(map_samples(idx, keys))):
                     return False
             return True

@@ -8,6 +8,10 @@
   own moments; running stats then update target half first, source second.
 * Running stats use the unbiased factor n/(n-1) and momentum 0.1, and are
   written in place on every train-mode call.
+* Under data parallelism the moments are those of the global batch: each
+  norm site all-sums its packed float32 [sum x, sum x^2, count] over the
+  ranks in one collective (TransNorm's two halves share it), and ``n`` is
+  the global count (every rank holds an equal shard).
 
 TransNorm keeps per-domain running stats with a shared affine, and scales
 each channel by the detached transferability factor ``a1 = 1 + C p / sum(p)``,
@@ -26,17 +30,49 @@ each channel by the detached transferability factor ``a1 = 1 + C p / sum(p)``,
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn as nn
 
+from uda_clr_tpu_torch.parallel.distributed import world_size
+from uda_clr_tpu_torch.parallel.reduce import all_sum
+
+
+def batch_moments_parts(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """float32 mean and biased variance of each tensor in ``xs`` over
+    ``dims``, over the global batch: under data parallelism one packed
+    ``all_sum`` of every part's [sum x, sum x^2] and its count."""
+    if world_size() == 1:
+        out = []
+        for x in xs:
+            x32 = x.float()
+            mean = x32.mean(dims)
+            out.append((mean, torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)))
+        return out
+    sums, shapes, counts = [], [], []
+    for x in xs:
+        x32 = x.float()
+        s1, s2 = x32.sum(dims), (x32 * x32).sum(dims)
+        sums += [s1.reshape(-1), s2.reshape(-1)]
+        shapes.append(s1.shape)
+        counts.append(math.prod(x.shape[d] for d in dims))
+    packed = all_sum(torch.cat(sums + [sums[0].new_tensor(counts)]))
+    n = packed[-len(xs):]
+    out, offset = [], 0
+    for i, shape in enumerate(shapes):
+        size = math.prod(shape)
+        mean = packed[offset:offset + size].reshape(shape) / n[i]
+        ex2 = packed[offset + size:offset + 2 * size].reshape(shape) / n[i]
+        out.append((mean, torch.clamp(ex2 - mean * mean, min=0.0)))
+        offset += 2 * size
+    return out
+
 
 def batch_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """float32 mean and biased variance over ``dims``."""
-    x32 = x.float()
-    mean = x32.mean(dims)
-    var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
-    return mean, var
+    """float32 mean and biased variance over ``dims`` (of the global batch
+    under data parallelism)."""
+    return batch_moments_parts([x], dims)[0]
 
 
 def normalize(x, mean, var, scale, bias, eps: float = 1e-5):
@@ -93,7 +129,8 @@ class DomainNorm2d(nn.Module):
     @torch.no_grad()
     def _ema(self, mean, var, n: int, domain: str = ""):
         """EMA of the running stats (``domain`` 'source'/'target' for TN)
-        toward a batch mean and biased variance over ``n`` values."""
+        toward a batch mean and biased variance over ``n`` values (the
+        global count under data parallelism)."""
         if not self.update_stats:
             return
         m = self.momentum
@@ -110,12 +147,15 @@ class DomainNorm2d(nn.Module):
                                  self.running_mean_target, self.running_var_target, eps)
             return normalize(x, self.running_mean_target, self.running_var_target,
                              scale * a1, bias * a1, eps)
-        n_pix = x.shape[2] * x.shape[3]
+        n_pix = x.shape[2] * x.shape[3] * world_size()  # global count per local image
         if domains == 0:
             mu, v = batch_moments(x, (0, 2, 3))
             return normalize(x, mu, v, scale * 2.0, bias * 2.0, eps)
         b = x.shape[0] // 2
         if x.shape[0] % 2:
+            if world_size() > 1:
+                raise ValueError(f"TransNorm splits a batch of {x.shape[0]} unevenly into "
+                                 f"source and target; data parallelism needs equal halves")
             # the reference's uneven b//2 split (batchnorm.py:439-442)
             halves = (x[:b], x[b:])
             moments = [batch_moments(h, (0, 2, 3)) for h in halves]
@@ -146,7 +186,7 @@ class DomainNorm2d(nn.Module):
         if not train:
             return normalize(x, self.running_mean, self.running_var,
                              self.weight, self.bias, self.eps)
-        n_pix = x.shape[2] * x.shape[3]
+        n_pix = x.shape[2] * x.shape[3] * world_size()  # global count per local image
         if domains <= 1:
             mu, v = batch_moments(x, (0, 2, 3))
             self._ema(mu.detach(), v.detach(), x.shape[0] * n_pix)

@@ -1,7 +1,11 @@
 """Class-prototype math (uda_clr_tpu/ops/prototypes.py:34-296), NHWC inputs
 as in the JAX package; every centroid division carries the +1e-12 guard.
 The last five functions serve the disk-bank method (``method='prototype'``)
-and the prototype-bank tool."""
+and the prototype-bank tool.
+
+Under data parallelism the centroids, the pooled means and the min-max
+weight are global values, reduced over the ranks (parallel/reduce.py) and
+the same on every rank."""
 
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ import numpy as np
 import torch
 
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
+from uda_clr_tpu_torch.parallel.distributed import world_size
+from uda_clr_tpu_torch.parallel.reduce import all_max, all_min, all_sum
 
 _EPS = 1e-12
 
@@ -30,10 +36,14 @@ class Prototypes(NamedTuple):
 
 
 def _masked_centroid(feature, mask, weight=None):
-    """sum(feature * mask * weight) / (sum(mask * weight) + eps) over (B,H,W)."""
+    """sum(feature * mask * weight) / (sum(mask * weight) + eps) over (B,H,W)
+    of the global batch (one packed all-sum of the sums)."""
     w = mask if weight is None else mask * weight
     num = torch.sum(feature * w, dim=(0, 1, 2))
     den = torch.sum(w, dim=(0, 1, 2))
+    if world_size() > 1:
+        packed = all_sum(torch.cat([num, den]))
+        num, den = packed[:-1], packed[-1:]
     return num / (den + _EPS)
 
 
@@ -142,6 +152,8 @@ def masked_pool_mean(feature: torch.Tensor, mask: torch.Tensor, eps: float = 1.0
     the ``bank_use_bu=False`` ablation. [B,h,w,C] x [B,h,w,1] -> [C]."""
     num = torch.sum(feature * mask, dim=(1, 2))  # [B, C]
     den = torch.sum(mask, dim=(1, 2)) + eps  # [B, 1]
+    if world_size() > 1:  # the global sum over B over the global B
+        return all_sum(torch.sum(num / den, dim=0)) / (num.shape[0] * world_size())
     return torch.mean(num / den, dim=0)
 
 
@@ -167,8 +179,9 @@ def feat_prototype_distance(feature: torch.Tensor, prototype: torch.Tensor) -> t
 
 
 def minmax_prototype_weight(dist: torch.Tensor) -> torch.Tensor:
-    """Min-max normalized distance weight (prototypes.py:293-296)."""
-    lo, hi = torch.min(dist), torch.max(dist)
+    """Min-max normalized distance weight (prototypes.py:293-296), the min
+    and max over the global batch."""
+    lo, hi = all_min(torch.min(dist)), all_max(torch.max(dist))
     return (dist - lo) / (hi - lo + _EPS)
 
 

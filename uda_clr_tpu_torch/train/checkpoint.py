@@ -19,6 +19,14 @@ checkpoint keeps the generator (backbone + first classifier) under
 ``model_state_dict``, the second classifier under
 ``model_cls2_state_dict`` and the three Adam states under
 ``optim_{fea,cls1,cls2}_state_dict`` in place of ``optim_state_dict``.
+
+Under data parallelism every rank calls :func:`save_checkpoint` (it
+gathers each rank's dropout generator into ``generator_states``, with the
+shared ``noise_generator_state``), rank 0 alone writes, and the ranks meet
+at a barrier; on resume every rank loads the same file and takes its own
+generator state (a checkpoint from another world size: rank 0 takes the
+saved one and every other rank reseeds from the step, so the ranks' streams
+stay distinct).
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
+from uda_clr_tpu_torch.parallel import distributed as dist_lib
+from uda_clr_tpu_torch.parallel.reduce import gather_rows
 from uda_clr_tpu_torch.train.state import TrainState
 
 _SUFFIX = ".pth.tar"
@@ -68,7 +79,9 @@ def _lr(opt) -> Optional[float]:
 
 
 def state_dict(state: TrainState) -> dict:
-    """The checkpoint dict of ``state`` (tensors on the CPU)."""
+    """The checkpoint dict of ``state`` (tensors on the CPU). Under data
+    parallelism every rank must call it: it gathers the ranks' generator
+    states."""
     sd = lambda m: None if m is None else m.state_dict()
     ckpt = {
         "model_state_dict": sd(state.gen),
@@ -99,6 +112,9 @@ def state_dict(state: TrainState) -> dict:
         ckpt["initial_state_dict"] = state.initial.state_dict()
     if state.proto_bank is not None:
         ckpt["proto_bank"] = dict(state.proto_bank)
+    if state.noise_generator is not None:
+        ckpt["generator_states"] = gather_rows(state.generator.get_state(), state.proto_src.device)
+        ckpt["noise_generator_state"] = state.noise_generator.get_state()
     return _cpu(ckpt)
 
 
@@ -139,23 +155,41 @@ def load_state_dict(state: TrainState, ckpt: dict) -> TrainState:
         state.proto_bank = {k: v.to(device) for k, v in ckpt["proto_bank"].items()}
     for key in ("proto_src", "proto_trg", "proto_src_init", "proto_trg_init"):
         setattr(state, key, ckpt[key].to(device))
-    state.generator.set_state(ckpt["generator_state"])
     state.seed, state.step = int(ckpt["seed"]), int(ckpt["step"])
+    rank, world = dist_lib.rank(), dist_lib.world_size()
+    per_rank = ckpt.get("generator_states")
+    if per_rank is not None and len(per_rank) == world:
+        state.generator.set_state(per_rank[rank])
+    elif rank == 0:
+        state.generator.set_state(ckpt["generator_state"])
+    else:  # saved at another world size: a stream of this rank's own
+        state.generator.manual_seed(dist_lib.rank_seed(
+            splitmix64((state.seed * 0x9E3779B97F4A7C15 + state.step) & MASK64), rank))
+    if state.noise_generator is not None:
+        # the draws for the global batch continue the saving run's: one
+        # process drew them from its only generator
+        state.noise_generator.set_state(ckpt.get("noise_generator_state",
+                                                 ckpt["generator_state"]))
     return state
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int, best_mean_dice: float,
                     tag: str, iteration: int = 0) -> str:
-    """Write ``{tag}.pth.tar`` and ``{tag}.meta.json``; returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write ``{tag}.pth.tar`` and ``{tag}.meta.json``; returns the path.
+    Under data parallelism every rank calls it, rank 0 writes, and the
+    ranks return together."""
     path = os.path.join(ckpt_dir, tag + _SUFFIX)
     ckpt = state_dict(state)
-    ckpt.update(epoch=epoch, iteration=iteration, best_mean_dice=best_mean_dice)
-    tmp = path + ".tmp"
-    torch.save(ckpt, tmp)
-    os.replace(tmp, path)  # a reader never sees a half-written file
-    with open(os.path.join(ckpt_dir, f"{tag}.meta.json"), "w") as f:
-        json.dump({"epoch": epoch, "best_mean_dice": best_mean_dice, "iteration": iteration}, f)
+    if dist_lib.is_main():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        ckpt.update(epoch=epoch, iteration=iteration, best_mean_dice=best_mean_dice)
+        tmp = path + ".tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, path)  # a reader never sees a half-written file
+        with open(os.path.join(ckpt_dir, f"{tag}.meta.json"), "w") as f:
+            json.dump({"epoch": epoch, "best_mean_dice": best_mean_dice,
+                       "iteration": iteration}, f)
+    dist_lib.barrier()
     return path
 
 

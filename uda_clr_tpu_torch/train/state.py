@@ -3,7 +3,13 @@ discriminators the method plays against, their optimizers, the two EMA
 prototype banks with their "seeded yet" flags, the mean teacher's shadow
 model, the disk-bank method's prototype bank and frozen initial model,
 ``bcdm``'s second classifier with its three optimizers, and the step's
-random sources."""
+random sources.
+
+Under data parallelism every rank builds the state from the same seed, then
+takes rank 0's parameters, buffers, banks and optimizer state
+(:func:`replicate_state`), which also checks that the ranks agree; the
+dropout generator is seeded per rank (rank 0 with the seed itself) and a
+second generator, seeded alike on every rank, draws for the global batch."""
 
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from uda_clr_tpu_torch.models.gan import (
     PatchDiscriminator,
     UncertaintyDiscriminator,
 )
+from uda_clr_tpu_torch.parallel import distributed as dist_lib
+from uda_clr_tpu_torch.parallel.reduce import broadcast_, replica_gap
 from uda_clr_tpu_torch.train import optim as optim_lib
 
 FEATURE_DIM = 305  # decoder x_feature channels
@@ -44,6 +52,10 @@ class TrainState:
     generator: torch.Generator  # the mask draws of the 'xla16'/'xla' dropout backends
     seed: int  # base of the kernels' 64-bit Philox seeds
     step: int = 0
+    # data parallelism: the draws made for the global batch (the mean
+    # teacher's noise), seeded alike on every rank; None in one process,
+    # where ``generator`` makes them
+    noise_generator: torch.Generator | None = None
     teacher: DeepLab | None = None  # mean teacher: EMA of gen's params, gen's running stats
     # disk-bank method: {'bu': [304], 'cup': [305], 'disc': [305]}, from the
     # prototype-bank tool's .npz (or zeros), EMA-updated by the step
@@ -133,7 +145,8 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
         bcdm_opt = {name: optim_lib.make_gen_optimizer(params, cfg.optim) for name, params in (
             ("fea", gen.backbone.parameters()), ("cls1", heads1), ("cls2", cls2.parameters()))}
     zeros = torch.zeros((4, FEATURE_DIM), dtype=torch.float32, device=device)
-    return TrainState(
+    parallel = dist_lib.world_size() > 1
+    state = TrainState(
         gen=gen, dis=dis, dis2=dis2,
         gen_opt=None if cls2 is not None else optim_lib.make_gen_optimizer(
             gen.parameters(), cfg.optim),
@@ -142,7 +155,8 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
         proto_src=zeros.clone(), proto_trg=zeros.clone(),
         proto_src_init=torch.zeros((), dtype=torch.bool, device=device),
         proto_trg_init=torch.zeros((), dtype=torch.bool, device=device),
-        generator=torch.Generator(device).manual_seed(seed),
+        generator=torch.Generator(device).manual_seed(dist_lib.rank_seed(seed)),
+        noise_generator=torch.Generator(device).manual_seed(seed) if parallel else None,
         seed=seed,
         teacher=teacher,
         proto_bank=bank,
@@ -150,3 +164,39 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
         cls2=cls2,
         bcdm_opt=bcdm_opt,
     )
+    if parallel:
+        replicate_state(state)
+    return state
+
+
+def optimizers(state: TrainState) -> list[torch.optim.Optimizer]:
+    opts = [state.gen_opt, state.dis_opt, state.dis2_opt] + list((state.bcdm_opt or {}).values())
+    return [o for o in opts if o is not None]
+
+
+def replicated_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor the ranks hold alike: the modules' parameters and
+    buffers, the banks and their flags, the optimizers' states."""
+    out = []
+    for module in (state.gen, state.dis, state.dis2, state.teacher, state.initial, state.cls2):
+        if module is not None:
+            out += list(module.state_dict().values())
+    out += [state.proto_src, state.proto_trg, state.proto_src_init, state.proto_trg_init]
+    out += [state.proto_bank[k] for k in sorted(state.proto_bank or {})]
+    for opt in optimizers(state):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                out += [v for _, v in sorted(opt.state.get(p, {}).items())
+                        if isinstance(v, torch.Tensor)]
+    return out
+
+
+def replicate_state(state: TrainState) -> None:
+    """Overwrite every replicated tensor with rank 0's, then check that the
+    ranks hold the same bits (raises if not). A no-op in one process."""
+    tensors = replicated_tensors(state)
+    device = state.proto_src.device
+    broadcast_(tensors, device)
+    gap = replica_gap(tensors, device)
+    if gap != 0.0:
+        raise RuntimeError(f"the ranks' states differ by {gap} after the broadcast from rank 0")

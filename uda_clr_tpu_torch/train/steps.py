@@ -28,6 +28,15 @@ generator; the fused dropout kernel K3, K1 and the augmentation draw from
 64-bit Philox seeds derived on the host from (state.seed, state.step), so no
 step syncs with the device.
 
+Data parallelism (parallel/distributed.py has the rule): each rank steps on
+its rows of the global batch. The norms' moments, the MC pass's, the
+prototype pools and ``loss_aug``'s denominator are reduced over the ranks,
+every optimizer's gradients are averaged before its step, and the metrics
+are the mean over the ranks. The augmentation draws and the mean teacher's
+noise are drawn for the global batch, each rank taking its rows; dropout
+draws per rank (the rank folded into the seeds, rank 0 drawing the
+single-process streams).
+
 A uint8 wire batch is decoded to float32 first (data/wire.py), as the JAX
 step does (steps.py:559). bf16: the batch is then cast to
 ``cfg.model.compute_dtype`` once; every conv
@@ -47,13 +56,21 @@ from uda_clr_tpu_torch.config import Config
 from uda_clr_tpu_torch.data.wire import decode_batch
 from uda_clr_tpu_torch.models import layers as layers_lib
 from uda_clr_tpu_torch.models.deeplab import DeepLab, DeepLabOutputs, nchw, nhwc
-from uda_clr_tpu_torch.models.norm import batch_moments, frozen_stats, normalize
+from uda_clr_tpu_torch.models.norm import (
+    batch_moments,
+    batch_moments_parts,
+    frozen_stats,
+    normalize,
+)
 from uda_clr_tpu_torch.ops import losses as L
 from uda_clr_tpu_torch.ops import prototypes as P
 from uda_clr_tpu_torch.ops.augment import augment_draws, strong_augment
 from uda_clr_tpu_torch.ops.mask_head import fused_mask_head_split
 from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
+from uda_clr_tpu_torch.parallel import distributed as dist_lib
+from uda_clr_tpu_torch.parallel.mesh import local_rows
+from uda_clr_tpu_torch.parallel.reduce import all_sum, average_grads, mean_metrics
 from uda_clr_tpu_torch.train import optim as optim_lib
 from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
 
@@ -121,7 +138,7 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
     boundary = _conv(y, bc[8].weight, 0, bc[8].bias).contiguous(memory_format=_CL)
 
     # mask head: the virtual 305-concat's moments are the per-part moments
-    moments = [batch_moments(t, (0, 2, 3)) for t in (x_up, ll_rep, boundary)]
+    moments = batch_moments_parts((x_up, ll_rep, boundary), (0, 2, 3))
     mask_bn, mask_out = dec.last_conv[0], dec.last_conv[3]
     x1 = fused_mask_head_split(
         nhwc(x_up), nhwc(ll_rep), nhwc(boundary),
@@ -228,7 +245,7 @@ def make_bcdm_step(cfg: Config):
     def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
         batch = decode_batch(batch)  # uint8 wire batches -> float32
         gen, cls2, g, opt = state.gen, state.cls2, state.generator, state.bcdm_opt
-        step_seed = kernel_seed(state.seed, state.step)
+        step_seed = dist_lib.rank_seed(kernel_seed(state.seed, state.step))
         image_s = nchw(batch["image_s"].to(dt))
         image_t = nchw(batch["image_t"].to(dt))
         map_s, boundary_s = batch["map_s"], batch["boundary_s"]
@@ -248,6 +265,7 @@ def make_bcdm_step(cfg: Config):
                 opt[name].zero_grad(set_to_none=True)
             loss.backward(inputs=[p for name in names for p in params[name]])
             for name in names:
+                average_grads(params[name])
                 opt[name].step()
 
         def cdd(o1, o2):
@@ -278,7 +296,7 @@ def make_bcdm_step(cfg: Config):
         metrics = {"loss_seg": loss_seg, "loss_cdd_before": cdd_before,
                    "loss_cdd_after": cdd_after,
                    "loss_all": loss_seg + w * (cdd_before + cdd_after)}
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = mean_metrics({k: v.detach() for k, v in metrics.items()})
         metrics["_viz"] = viz
         return state, metrics
 
@@ -326,7 +344,9 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
         batch = decode_batch(batch)  # uint8 wire batches -> float32
         gen, g = state.gen, state.generator
-        step_seed = kernel_seed(state.seed, state.step)
+        world, rank = dist_lib.world_size(), dist_lib.rank()
+        global_seed = kernel_seed(state.seed, state.step)
+        step_seed = dist_lib.rank_seed(global_seed, rank)  # K1 and dropout: per rank
         image_s = batch["image_s"].to(dt)
         map_s, boundary_s = batch["map_s"], batch["boundary_s"]
         b = image_s.shape[0]
@@ -340,7 +360,12 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
         if use_teacher:
             t_in = image_t
             if mcfg.teacher_noise > 0.0:
-                noise = torch.randn(image_t.shape, generator=g, device=image_t.device)
+                # drawn for the global batch; this rank's rows
+                n_t = image_t.shape[0] * world
+                noise = torch.randn((n_t,) + tuple(image_t.shape[1:]), device=image_t.device,
+                                    generator=g if state.noise_generator is None
+                                    else state.noise_generator)
+                noise = noise[local_rows(n_t, rank, world)]
                 t_in = image_t + (mcfg.teacher_noise * noise).to(dt)
             with torch.no_grad():
                 teacher_out = state.teacher(t_in, train=False)
@@ -429,13 +454,18 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             # the MC-std confidence masks nearest-upsampled to the image
             pseudo = (torch.sigmoid(o_t.detach()) > consistency_threshold(epoch)).float()
             conf = nhwc(resize_nearest(nchw(rect.conf_mask.detach()), hw))
-            draws = augment_draws(stream_seed(step_seed, _AUG_DRAWS), b, image_t.device)
+            # drawn for the global batch; this rank's rows
+            draws = augment_draws(stream_seed(global_seed, _AUG_DRAWS), b * world,
+                                  image_t.device)[local_rows(b * world, rank, world)]
             x_aug = strong_augment(image_t.float(), draws).to(dt)
             aug_stream = layers_lib.DropoutStream(g, stream_seed(step_seed, _AUG_FORWARD))
             with frozen_stats(gen), torch.set_grad_enabled(mcfg.aug_backward):
                 o_aug = gen(x_aug, True, 1, aug_stream).mask_logits.float()
             per_px = L.bce_sigmoid_stable_elementwise(o_aug, pseudo)
-            loss_aug = mcfg.aug_weight * torch.sum(per_px * conf) / torch.sum(conf)
+            # a data-dependent denominator: N * local sum / global sum
+            loss_aug = mcfg.aug_weight * torch.sum(per_px * conf) / all_sum(torch.sum(conf))
+            if world > 1:
+                loss_aug = loss_aug * world
             if mcfg.aug_backward:
                 loss = loss + loss_aug
             metrics["loss_aug"] = loss_aug
@@ -451,6 +481,7 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
         state.gen_opt.zero_grad(set_to_none=True)
         gen_params = [p for p in gen.parameters() if p.requires_grad]
         loss.backward(inputs=gen_params)
+        average_grads(gen_params)
         state.gen_opt.step()
         metrics["loss_all"] = loss
 
@@ -469,6 +500,7 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             opt.zero_grad(set_to_none=True)
             loss_d = _dis_loss(dis, x_s, x_t)
             loss_d.backward()
+            average_grads(dis.parameters())
             opt.step()
             metrics[name] = loss_d
 
@@ -489,7 +521,7 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                 for t_buf, s_buf in zip(state.teacher.buffers(), gen.buffers()):
                     t_buf.copy_(s_buf)
         state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = mean_metrics({k: v.detach() for k, v in metrics.items()})
         metrics["_viz"] = {k: v.detach() for k, v in viz.items()}
         return state, metrics
 

@@ -23,15 +23,26 @@ the host batch become the reference's tensorboard image grids (PNGs under
 scalars, off the step's path; with ``save_val_images`` validation writes
 the first 8 batches' strips to ``visualization/epoch_N.png``.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md):
-multi-process data parallelism and a mesh wider than one device. An orbax
-checkpoint directory as ``initial_resume`` raises naming
-``convert_orbax_checkpoint.py``, which turns it into a ``.pth.tar``.
+Data parallelism across processes (``run.dist_coordinator``,
+``dist_num_processes``, ``dist_process_id``, ``dist_backend``; JAX
+trainer.py:54-87,122-137,169-170,268-307,473-483): one process per device,
+each on its rows of every global batch (the train loaders are sharded, the
+validation loader is not: validation runs replicated on every rank, and
+rank 0's metrics decide the checkpoints). Rank 0 alone writes
+``config.yaml``, the CSV, the scalars, the images and the checkpoints; the
+other ranks get no-op sinks. ``viz_every`` is forced to 0 across processes,
+as in JAX. ``epoch_stats`` hold the global img/s and this rank's loader
+wait, and after training the ranks check that they hold the same
+parameters bit for bit.
+
+Not ported, raising ``NotImplementedError``: the ``('data', 'space')``
+spatial mesh (ROADMAP). An orbax checkpoint directory as ``initial_resume``
+raises naming ``convert_orbax_checkpoint.py``, which turns it into a
+``.pth.tar``.
 """
 
 from __future__ import annotations
 
-import math
 import os
 import time
 
@@ -45,9 +56,12 @@ from uda_clr_tpu_torch.data.fundus import FundusSegmentation
 from uda_clr_tpu_torch.data.pipeline import BatchLoader
 from uda_clr_tpu_torch.data.synthetic import SyntheticFundus
 from uda_clr_tpu_torch.data.transforms import eval_transforms, train_transforms
+from uda_clr_tpu_torch.parallel import distributed as dist_lib
+from uda_clr_tpu_torch.parallel.mesh import check_mesh
+from uda_clr_tpu_torch.parallel.reduce import broadcast_, replica_gap
 from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
 from uda_clr_tpu_torch.train import optim as optim_lib
-from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state
+from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state, replicate_state
 from uda_clr_tpu_torch.train.steps import make_eval_step, make_train_step
 from uda_clr_tpu_torch.utils.logging import CsvLogger, ScalarWriter, StepTimer
 from uda_clr_tpu_torch.utils.metrics import dice_coeff_2label, pixel_acc
@@ -59,28 +73,49 @@ _ADVERSARIAL_METHODS = {"adversarial", "posal", "prototype", "prototype_full", "
 
 
 def _not_ported(cfg: Config) -> None:
+    """Raise, before any process group forms, for the spatial mesh, a mesh
+    that is not the configured group of processes, and an orbax
+    ``initial_resume``."""
     run = cfg.run
-    if run.dist_coordinator or run.dist_num_processes > 1:
-        raise NotImplementedError("multi-process data parallelism is not ported yet (ROADMAP A12)")
-    if run.mesh_shape is not None and math.prod(run.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape {run.mesh_shape}: the port trains on one device (ROADMAP A12)")
+    check_mesh(run.mesh_shape, run.dist_num_processes if run.dist_coordinator else 1)
     if run.initial_resume and not run.initial_resume.endswith((".pth", ".pth.tar")):
         raise NotImplementedError(ckpt_lib.ORBAX_NOTE.format(what="initial_resume"))
+
+
+class _NoopSink:
+    """Write-nothing stand-in for CsvLogger/ScalarWriter on the ranks other
+    than 0 (one writer per run)."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
 
 
 class Trainer:
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
         """Datasets from cfg.data (synthetic, or the fundus directories);
-        ``device``: the card unless the caller asks for the CPU; raises if
-        CUDA is asked for and absent."""
+        ``device``: the card unless the caller asks for the CPU (each rank
+        takes its own card, :func:`dist_lib.rank_device`); raises if CUDA is
+        asked for and absent. With ``run.dist_coordinator`` set this joins
+        the process group first."""
         _not_ported(cfg)
         self.cfg = cfg
         self.method = cfg.method.method
-        self.device = resolve_device(device)
+        device = resolve_device(device)
+        dist_lib.maybe_initialize(cfg.run, device)
+        self.world, self.rank = dist_lib.world_size(), dist_lib.rank()
+        self._main = self.rank == 0
+        self.device = dist_lib.rank_device(device)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         os.makedirs(cfg.run.out_dir, exist_ok=True)
-        with open(os.path.join(cfg.run.out_dir, "config.yaml"), "w") as f:
-            f.write(cfg.to_yaml())
+        if self._main:
+            with open(os.path.join(cfg.run.out_dir, "config.yaml"), "w") as f:
+                f.write(cfg.to_yaml())
+        if self.world > 1 and cfg.run.viz_every:
+            # as the JAX Trainer (trainer.py:84-87): the tiles are one rank's
+            print(f"viz_every {cfg.run.viz_every} -> 0: no train-time image grids across "
+                  f"{self.world} processes")
+            cfg.run.viz_every = 0
 
         size = cfg.data.image_size
         wire_fmt = cfg.data.wire
@@ -101,10 +136,13 @@ class Trainer:
                                              eval_transforms(size, wire=wire_fmt))
 
         bs, nw, lb = cfg.data.batch_size, cfg.data.num_workers, cfg.data.loader_backend
+        # each rank loads its rows of every global batch; validation is
+        # unsharded (it runs replicated)
+        shard = dict(process_index=self.rank, process_count=self.world)
         self.loader_s = BatchLoader(self.ds_s, bs, shuffle=True, seed=cfg.run.seed,
-                                    num_workers=nw, backend=lb)
+                                    num_workers=nw, backend=lb, **shard)
         self.loader_t = BatchLoader(self.ds_t, bs, shuffle=False, seed=cfg.run.seed + 1,
-                                    num_workers=nw, backend=lb)
+                                    num_workers=nw, backend=lb, **shard)
         self.loader_val = BatchLoader(self.ds_val, bs, shuffle=False, drop_last=False,
                                       num_workers=nw, backend=lb)
 
@@ -117,8 +155,8 @@ class Trainer:
         self._steps = {}  # proto_phase -> step
         self._eval_step = make_eval_step(self.state.gen, cfg.model.dtype)
 
-        self.csv = CsvLogger(cfg.run.out_dir)
-        self.writer = ScalarWriter(cfg.run.out_dir)
+        self.csv = CsvLogger(cfg.run.out_dir) if self._main else _NoopSink()
+        self.writer = ScalarWriter(cfg.run.out_dir) if self._main else _NoopSink()
         self.timer = StepTimer()
         self.epoch = 0
         self.iteration = -1  # last completed global step; -1 = none yet
@@ -127,6 +165,7 @@ class Trainer:
         self.best_epoch = -1
         # per trained epoch: wall time, img/s, loader wait, peak device memory
         self.epoch_stats: list[dict] = []
+        self.replica_gap = None  # across processes: set by train()
 
         if cfg.run.initial_resume:
             self._initial_resume(cfg.run.initial_resume)
@@ -136,6 +175,8 @@ class Trainer:
                 self.state.initial.load_state_dict(self.state.gen.state_dict())
         if cfg.run.resume:
             self._resume(cfg.run.resume)
+        if self.world > 1 and (cfg.run.initial_resume or cfg.run.resume):
+            replicate_state(self.state)  # every rank loaded the same file
 
         # The target stream's position equals the number of completed steps
         # (one target batch per step), so starting it at the restored
@@ -188,10 +229,7 @@ class Trainer:
         return self._steps[proto_phase]
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            t = t.pin_memory()  # an asynchronous copy that does not wait for the queue
-        return t.to(self.device, non_blocking=True)
+        return dist_lib.put_global(arr, self.device)
 
     def _device_batch(self, batch_s: dict, batch_t: dict | None) -> dict:
         out = {
@@ -224,8 +262,9 @@ class Trainer:
         needs_target = self.method in _ADVERSARIAL_METHODS
 
         # run.profile: one torch.profiler window (steps 3..8 of the first
-        # trained epoch, clamped for shorter epochs) into out_dir/profile
-        if cfg.run.profile and not self._profiled:
+        # trained epoch, clamped for shorter epochs) into out_dir/profile,
+        # rank 0's
+        if cfg.run.profile and not self._profiled and self._main:
             n_steps = len(self.loader_s)
             prof_start = 3 if n_steps > 3 else 0
             prof_stop = min(8, n_steps - 1)
@@ -263,7 +302,7 @@ class Trainer:
                 # the device tiles and the host batch; written after the epoch
                 viz_pending.append((self.iteration, batch_s, batch_t, viz))
             pending.append((self.iteration, metrics))
-            self.timer.add_images(batch_s["image"].shape[0])
+            self.timer.add_images(batch_s["image"].shape[0] * self.world)  # the global batch
             batch_idx += 1
         if prof is not None:  # epoch shorter than the window
             self._stop_profile(prof)
@@ -399,7 +438,14 @@ class Trainer:
             n_batches += 1
         for k in tot:
             tot[k] /= max(n_batches, 1)
-        if val_strips:
+        if self.world > 1:
+            # replicated validation; rank 0's metrics decide for every rank,
+            # so the ranks take the same checkpoint branch
+            keys = sorted(tot)
+            vals = torch.tensor([tot[k] for k in keys], dtype=torch.float64, device=self.device)
+            broadcast_([vals], self.device)
+            tot = dict(zip(keys, vals.tolist()))
+        if val_strips and self._main:
             save_val_img(self.cfg.run.out_dir, self.epoch, val_strips)
 
         step = self.epoch * len(self.loader_s)
@@ -439,8 +485,21 @@ class Trainer:
                     break
                 if (epoch + 1) % cfg.run.interval_validate == 0:
                     self.validate()
+            if self.world > 1:
+                self.replica_gap = self.check_replicas()
         finally:
             self.close()
+
+    def check_replicas(self) -> float:
+        """The largest difference between any rank's parameters and rank
+        0's (broadcast from rank 0, all-reduce MAX); raises unless 0."""
+        st = self.state
+        params = [p for m in (st.gen, st.dis, st.dis2, st.cls2, st.teacher) if m is not None
+                  for p in m.parameters()]
+        gap = replica_gap(params, self.device)
+        if gap != 0.0:
+            raise RuntimeError(f"rank {self.rank}: parameters differ across ranks by {gap}")
+        return gap
 
     def close(self):
         """Stop the target stream's producer thread and close the writer."""
