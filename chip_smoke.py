@@ -112,12 +112,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    rank, parameters equal bit for bit across ranks, one log.csv and one
    checkpoint set written by rank 0, and a two-rank resume for one more
    epoch. Two ranks sharing one card through gloo measure no scaling;
-17. prints a ``kernels`` JSON line (each kernel's launches summed over every
-   path driven above, the data-parallel ranks' included), the card's name
-   and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+17. the ``('data', 'space')`` mesh on the one card, ranks sharing it through
+   gloo (their halo rows staged through the host): on ``(1, 2)`` (2 ranks,
+   each the top or bottom half of every image) and ``(2, 2)`` (4 ranks), the
+   float32 prototype-phase step at full width under ``bn`` and ``tn`` held
+   to step 16's one-process step as step 16 holds its ranks (the ranks bit
+   for bit alike), the flagship's bf16 step timed per rank with each rank's
+   peak device memory beside the one-process step's, one K1 launch per
+   prototype-phase step per rank; on ``(1, 2)`` also ``prototype_mt`` under
+   ``'pallas'`` (K1 and K3 per rank, the ranks' K3 masks differ) and the
+   CLI with ``run.mesh_shape: [1, 2]`` (a warmup epoch and a
+   prototype-phase epoch, one writer, parameters equal bit for bit);
+18. prints a ``kernels`` JSON line (each kernel's launches summed over every
+   path driven above, the data-parallel and spatial ranks' included), the
+   card's name and power limit, and as its last line ``{"ok": true,
+   "device": {...}}``.
 
 ``python3 chip_smoke.py --dp-only`` builds the kernels and runs step 16
-alone (it prints no result line).
+alone, ``--spatial-only`` step 17 alone (with its own one-process steps);
+neither prints a result line.
 
 It exits non-zero, with no result line, when there is no CUDA card, when
 the port's package is not beside it, or when any phase fails. float32
@@ -127,6 +140,7 @@ comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32`` and
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -184,6 +198,9 @@ DP_STATS_RTOL = 3e-4  # of each running stat's largest entry (floor 1e-3)
 DP_PARAM_MEDIAN_LR = 0.2  # median |diff| / lr of the generator's parameters
 DP_BANK_ATOL = 5e-4
 DP_RANK_TIMEOUT = 900  # seconds a rank process may take
+# the ('data', 'space') meshes of the spatial phase, (n_data, n_space); the
+# first also runs prototype_mt under 'pallas' and the CLI
+SPATIAL_MESHES = ((1, 2), (2, 2))
 
 
 def fail(msg: str) -> None:
@@ -1388,12 +1405,18 @@ def profiling_phase(torch, np, ports, profiling, mh, K3, tmp: str) -> dict:
 
 
 def dp_batch(torch, np, rank: int, world: int, device: str = "cuda") -> dict:
-    """This rank's rows of the full-width global batch (8 + 8 at 512^2)."""
-    from uda_clr_tpu_torch.parallel.mesh import local_rows
+    """This rank's rows of the full-width global batch (8 + 8 at 512^2);
+    on the ('data', 'space') mesh its data index's rows and its stripe of
+    every image."""
+    from uda_clr_tpu_torch.parallel import spatial
+    from uda_clr_tpu_torch.parallel.mesh import local_rows, local_stripe
 
     arrs = small_batch(np, np.random.default_rng(0), 8, 512)
-    rows = local_rows(8, rank, world)
-    return {k: torch.from_numpy(v[rows].copy()).to(device) for k, v in arrs.items()}
+    (d, n_data), (s, n_space) = spatial.data_coords(), spatial.space_coords()
+    if spatial.mesh() is None:
+        d, n_data = rank, world
+    rows, stripe = local_rows(8, d, n_data), local_stripe(512, s, n_space)
+    return {k: torch.from_numpy(v[rows, stripe].copy()).to(device) for k, v in arrs.items()}
 
 
 def dp_equivalence_step(torch, np, ports, norm: str, rank: int = 0, world: int = 1) -> dict:
@@ -1436,9 +1459,11 @@ def dp_equivalence_step(torch, np, ports, norm: str, rank: int = 0, world: int =
 def dp_flagship_timing(torch, np, ports, mh, K3, rank: int, world: int) -> dict:
     """The flagship's bf16 step (default dropout) on this rank's rows:
     1 warmup + 3 prototype-phase steps, one K1 launch per prototype step;
-    the median of steps 1-2."""
+    the median of steps 1-2 and the peak device memory of the four."""
     Config, create_train_state, make_train_step, _ = ports
     cfg = full_width_cfg(Config)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     state = create_train_state(cfg, seed=0, device="cuda")
     batch = dp_batch(torch, np, rank, world)
     warm = make_train_step(cfg, "prototype_full", proto_phase=False)
@@ -1447,19 +1472,47 @@ def dp_flagship_timing(torch, np, ports, mh, K3, rank: int, world: int) -> dict:
     state, m = warm(state, batch, 1e-3, 2.5e-5)
     take_viz(m, f"rank {rank} flagship warmup")
     step_ms = []
+    calls = {}
     for i in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = proto(state, batch, 1e-3, 2.5e-5)
+        # the last step counts its collectives (all-reduces, halo exchanges)
+        with counted_collectives(calls) if i == 2 else contextlib.nullcontext():
+            state, m = proto(state, batch, 1e-3, 2.5e-5)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         take_viz(m, f"rank {rank} flagship step {i}")
         check_metrics(m, f"rank {rank} flagship step {i}")
     check_counts(mh, K3, {"k1": 3, "k2": 0, "k3_fwd": 0, "k3_bwd": 0},
                  f"rank {rank} flagship (bf16, 'xla16')")
+    peak = torch.cuda.max_memory_allocated() / 2**30
     del state
     torch.cuda.empty_cache()
-    return {"ms": statistics.median(step_ms[1:]), "launches": counts(mh, K3)}
+    return {"ms": statistics.median(step_ms[1:]), "peak_gib": peak, "launches": counts(mh, K3),
+            "collectives": calls}
+
+
+@contextlib.contextmanager
+def counted_collectives(calls: dict):
+    """Count the ``torch.distributed`` all-reduces and batched sends and
+    receives (the halo exchanges) made inside the block into ``calls``."""
+    import torch.distributed as dist
+
+    real = {name: getattr(dist, name) for name in ("all_reduce", "batch_isend_irecv")}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in real:
+        setattr(dist, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
 
 
 def dp_pallas_steps(torch, np, ports, mh, K3, rank: int, world: int) -> dict:
@@ -1512,10 +1565,12 @@ def dp_pallas_steps(torch, np, ports, mh, K3, rank: int, world: int) -> dict:
 
 
 def dp_rank(spec: dict) -> None:
-    """A rank of the data-parallel phase (``chip_smoke.py --dp-rank JSON``):
-    joins the gloo group, runs the float32 equivalence step under bn and
-    tn, the bf16 flagship timing and ``prototype_mt`` under 'pallas' on its
-    rows, and writes the results to ``spec['out']``."""
+    """A rank of the data-parallel or the spatial phase (``chip_smoke.py
+    --dp-rank JSON``): joins the gloo group (and, with ``spec['n_space']``
+    above 1, the ``('data', 'space')`` mesh), runs the float32 equivalence
+    step under bn and tn, the bf16 flagship timing and, with
+    ``spec['pallas']``, ``prototype_mt`` under 'pallas' on its rows (and
+    stripe), and writes the results to ``spec['out']``."""
     import numpy as np
     import torch
 
@@ -1524,6 +1579,7 @@ def dp_rank(spec: dict) -> None:
     from uda_clr_tpu_torch.ops import dropout as K3
     from uda_clr_tpu_torch.ops import mask_head as mh
     from uda_clr_tpu_torch.parallel import distributed as dist_lib
+    from uda_clr_tpu_torch.parallel import spatial
     from uda_clr_tpu_torch.train.state import create_train_state
     from uda_clr_tpu_torch.train.steps import make_train_step
 
@@ -1534,10 +1590,13 @@ def dp_rank(spec: dict) -> None:
     dist_lib.initialize(spec["init"], world, rank, backend="gloo", device="cuda")
     try:
         torch.cuda.set_device(dist_lib.rank_device("cuda"))
+        n_space = spec.get("n_space", 1)
+        spatial.init_mesh((world // n_space, n_space))
         out = {"equivalence": {norm: dp_equivalence_step(torch, np, ports, norm, rank, world)
                                for norm in ("bn", "tn")}}
         out["flagship"] = dp_flagship_timing(torch, np, ports, mh, K3, rank, world)
-        out["pallas"] = dp_pallas_steps(torch, np, ports, mh, K3, rank, world)
+        if spec.get("pallas", True):
+            out["pallas"] = dp_pallas_steps(torch, np, ports, mh, K3, rank, world)
         dist_lib.barrier()
     finally:
         dist_lib.shutdown()
@@ -1583,12 +1642,12 @@ def run_ranks(commands: list, tmp: str, name: str) -> list:
     return outputs
 
 
-def dp_compare(single: dict, ranks: list, norm: str) -> dict:
+def dp_compare(single: dict, ranks: list, norm: str, what: str = "data-parallel") -> dict:
     """The ranks' equivalence step against the one-process step: every gap,
     failing on one past its tolerance; the ranks must agree bit for bit."""
     import torch
 
-    where = f"data-parallel equivalence ({norm})"
+    where = f"{what} equivalence ({norm})"
     r0 = ranks[0]
     for r, res in enumerate(ranks[1:], 1):
         if res["metrics"] != r0["metrics"]:
@@ -1603,7 +1662,7 @@ def dp_compare(single: dict, ranks: list, norm: str) -> dict:
     for keys, tol in ((DP_TIGHT, DP_TIGHT_ATOL), (DP_LOOSE, DP_LOOSE_ATOL)):
         for k in keys:
             gaps[k] = abs(single["metrics"][k] - r0["metrics"][k])
-            say(f"{where} {k}: one process {single['metrics'][k]:.8g}, 2 ranks "
+            say(f"{where} {k}: one process {single['metrics'][k]:.8g}, {len(ranks)} ranks "
                 f"{r0['metrics'][k]:.8g}, gap {gaps[k]:.3e} (tolerance {tol:g})")
             if not gaps[k] <= tol:
                 fail(f"{where}: {k} gap {gaps[k]:.3e} > {tol:g}")
@@ -1627,22 +1686,25 @@ def dp_compare(single: dict, ranks: list, norm: str) -> dict:
     return gaps
 
 
-def dp_trainer_yaml(build_config, tmp: str, rank: int, port: int, max_epoch: int) -> str:
-    """Rank ``rank``'s ``--config`` YAML of the two-rank CLI run."""
+def dp_trainer_yaml(build_config, tmp: str, rank: int, port: int, max_epoch: int,
+                    world: int = DP_WORLD, mesh_shape=None) -> str:
+    """Rank ``rank``'s ``--config`` YAML of the CLI run in ``world`` ranks
+    (on ``mesh_shape``)."""
     cfg = build_config(TRAINER_FLAGS + ["--max-epoch", str(max_epoch)])
     cfg.data.synthetic_size = 16  # 2 global steps of 8 + 8 per epoch
     cfg.method.warmup_epoch = 0  # epoch 0 warmup, then the prototype phase
     cfg.run.checkpoint_every = 1
     cfg.run.dist_coordinator = f"localhost:{port}"
-    cfg.run.dist_num_processes, cfg.run.dist_process_id = DP_WORLD, rank
+    cfg.run.dist_num_processes, cfg.run.dist_process_id = world, rank
     cfg.run.dist_backend = "gloo"  # nccl refuses two ranks on one card
+    cfg.run.mesh_shape = mesh_shape
     path = os.path.join(tmp, f"trainer_rank{rank}_{max_epoch}.yaml")
     with open(path, "w") as f:
         f.write(cfg.to_yaml())
     return path
 
 
-def dp_summaries(outputs: list, where: str) -> list:
+def dp_summaries(outputs: list, where: str, world: int = DP_WORLD) -> list:
     summaries = []
     for r, text in enumerate(outputs):
         lines = [l for l in text.splitlines() if l.startswith("rank summary: ")]
@@ -1650,28 +1712,32 @@ def dp_summaries(outputs: list, where: str) -> list:
             fail(f"{where}: rank {r} printed {len(lines)} summary lines:\n{text[-3000:]}")
         summaries.append(json.loads(lines[0][len("rank summary: "):]))
     for r, s in enumerate(summaries):
-        if s["rank"] != r or s["world"] != DP_WORLD or s["replica_gap"] != 0.0:
+        if s["rank"] != r or s["world"] != world or s["replica_gap"] != 0.0:
             fail(f"{where}: rank {r}'s summary {s}")
     return summaries
 
 
-def dp_trainer_phase(build_config, headers, tmp: str) -> dict:
-    """The CLI in two ranks on the card, one ``python -m
-    uda_clr_tpu_torch.cli --config`` per rank: 2 epochs (warmup, prototype
-    phase), then a two-rank resume for a third. Returns the launches and
-    the ranks' step ms and loader wait of the prototype-phase epochs."""
-    run = os.path.join(tmp, "dp_run")
+def dp_trainer_phase(build_config, headers, tmp: str, world: int = DP_WORLD, mesh_shape=None,
+                     resume: bool = True, what: str = "data-parallel") -> dict:
+    """The CLI in ``world`` ranks on the card (on ``mesh_shape``), one
+    ``python -m uda_clr_tpu_torch.cli --config`` per rank: 2 epochs
+    (warmup, prototype phase), then with ``resume`` a resume in as many
+    ranks for a third. Returns the launches and the ranks' step ms and
+    loader wait of the prototype-phase epochs."""
+    run = os.path.join(tmp, f"{what}_run")
     total = {"k1": 0, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
     stats = []
-    for max_epoch, extra in ((2, []), (3, ["--resume", os.path.join(run, "checkpoints")])):
+    runs = [(2, [])] + ([(3, ["--resume", os.path.join(run, "checkpoints")])] if resume else [])
+    for max_epoch, extra in runs:
         port = free_port()
         commands = [[sys.executable, "-m", "uda_clr_tpu_torch.cli", "--config",
-                     dp_trainer_yaml(build_config, tmp, r, port, max_epoch), "--out", run,
-                     *extra] for r in range(DP_WORLD)]
+                     dp_trainer_yaml(build_config, tmp, r, port, max_epoch, world, mesh_shape),
+                     "--out", run, *extra] for r in range(world)]
         t0 = time.perf_counter()
-        where = f"data-parallel CLI to epoch {max_epoch}"
-        summaries = dp_summaries(run_ranks(commands, tmp, f"trainer{max_epoch}"), where)
-        say(f"{where}: {time.perf_counter() - t0:.1f} s for both ranks")
+        where = f"{what} CLI to epoch {max_epoch}"
+        summaries = dp_summaries(run_ranks(commands, tmp, f"{what}_trainer{max_epoch}"), where,
+                                 world)
+        say(f"{where}: {time.perf_counter() - t0:.1f} s for the {world} ranks")
         want_epochs = [0, 1] if not extra else [2]
         for r, s in enumerate(summaries):
             epochs = s["epochs"]
@@ -1692,26 +1758,30 @@ def dp_trainer_phase(build_config, headers, tmp: str) -> dict:
                     stats.append({"rank": r, "epoch": e["epoch"],
                                   "ms": 1e3 * e["seconds"] / e["steps"],
                                   "wait_ms": 1e3 * e["loader_wait_s"] / e["steps"],
-                                  "img_per_s": e["img_per_s"]})
-    # one writer: one log.csv (the header, 2 steps + 1 validation per epoch,
-    # 3 epochs), one checkpoint set, no stray file
+                                  "img_per_s": e["img_per_s"], "peak_gib": e["peak_gib"]})
+    # one writer: one log.csv (the header, 2 steps + 1 validation per
+    # epoch), one checkpoint set, no stray file
+    epochs = len(runs) + 1
     with open(os.path.join(run, "log.csv")) as f:
         rows = list(csv.reader(f))
     train = [r for r in rows[1:] if r[2]]
-    if rows[0] != headers or len(rows) != 1 + 3 * 3 or [int(r[1]) for r in train] != list(range(6)):
-        fail(f"data-parallel CLI: log.csv has {len(rows)} rows, train iterations "
+    if rows[0] != headers or len(rows) != 1 + 3 * epochs or \
+            [int(r[1]) for r in train] != list(range(2 * epochs)):
+        fail(f"{what} CLI: log.csv has {len(rows)} rows, train iterations "
              f"{[r[1] for r in train]}")
-    want = sorted(f"checkpoint_{e}.{x}" for e in (1, 2, 3) for x in ("meta.json", "pth.tar"))
+    want = sorted(f"checkpoint_{e}.{x}" for e in range(1, epochs + 1)
+                  for x in ("meta.json", "pth.tar"))
     if sorted(os.listdir(os.path.join(run, "checkpoints"))) != want:
-        fail(f"data-parallel CLI: checkpoints {sorted(os.listdir(os.path.join(run, 'checkpoints')))}")
-    say(f"data-parallel CLI: one log.csv ({len(rows)} rows) and one checkpoint set {want}, "
+        fail(f"{what} CLI: checkpoints {sorted(os.listdir(os.path.join(run, 'checkpoints')))}")
+    say(f"{what} CLI: one log.csv ({len(rows)} rows) and one checkpoint set {want}, "
         f"written by rank 0; parameters equal bit for bit across ranks after each run")
     return {"launches": total, "stats": stats}
 
 
-def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: str) -> dict:
+def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: str) -> tuple:
     """Data parallelism in two gloo ranks on the one card (module docstring,
-    step 16). Returns the launches of every rank's main paths."""
+    step 16). Returns the launches of every rank's main paths and the
+    one-process equivalence steps."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         single = {norm: dp_equivalence_step(torch, np, ports, norm) for norm in ("bn", "tn")}
@@ -1752,6 +1822,73 @@ def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: 
                 f"{s['ms']:.1f} ms/step, loader wait {s['wait_ms']:.1f} ms/step, "
                 f"{s['img_per_s']:.2f} global img/s ({card}; two ranks on one card)")
         say(f"data-parallel phase launches (all ranks): {launches}")
+        return launches, single
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def spatial_phase(torch, np, ports, build_config, headers, card: str, single=None) -> dict:
+    """The ('data', 'space') mesh on the one card (module docstring, step
+    17): ranks on each of SPATIAL_MESHES sharing the card through gloo, the
+    halo rows staged through the host. ``single``: the one-process float32
+    equivalence steps of the data-parallel phase (run here without it).
+    Returns the launches of every path it drove."""
+    from uda_clr_tpu_torch.ops import dropout as K3
+    from uda_clr_tpu_torch.ops import mask_head as mh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
+    try:
+        t_phase = time.perf_counter()
+        runs = []
+        if single is None:
+            single = {norm: dp_equivalence_step(torch, np, ports, norm) for norm in ("bn", "tn")}
+            runs += single.values()
+        one = dp_flagship_timing(torch, np, ports, mh, K3, 0, 1)
+        runs.append(one)
+        for n_data, n_space in SPATIAL_MESHES:
+            world, shape = n_data * n_space, f"({n_data}, {n_space})"
+            init = f"file://{os.path.join(tmp, f'init{n_data}x{n_space}')}"
+            outs = [os.path.join(tmp, f"rank{n_data}x{n_space}_{r}.pt") for r in range(world)]
+            pallas = (n_data, n_space) == SPATIAL_MESHES[0]
+            commands = [[sys.executable, os.path.abspath(__file__), "--dp-rank", json.dumps(
+                {"rank": r, "world": world, "n_space": n_space, "init": init, "out": outs[r],
+                 "pallas": pallas})] for r in range(world)]
+            t0 = time.perf_counter()
+            run_ranks(commands, tmp, f"spatial{n_data}x{n_space}")
+            say(f"spatial mesh {shape}: {time.perf_counter() - t0:.1f} s for its {world} ranks")
+            ranks = [torch.load(o, weights_only=False) for o in outs]
+            for norm in ("bn", "tn"):
+                dp_compare(single[norm], [r["equivalence"][norm] for r in ranks], norm,
+                           f"spatial mesh {shape}")
+            runs += [r["equivalence"][n] for r in ranks for n in ("bn", "tn")]
+            runs += [r["flagship"] for r in ranks]
+            if pallas:
+                digests = [r["pallas"]["mask_digests"] for r in ranks]
+                for i in range(2):
+                    if len({d[i] for d in digests}) != world:
+                        fail(f"spatial mesh {shape} prototype_mt 'pallas' step {i}: two ranks "
+                             f"drew the same K3 mask")
+                runs += [r["pallas"] for r in ranks]
+                say(f"spatial mesh {shape} prototype_mt 'pallas': launches per rank "
+                    f"{[r['pallas']['launches'] for r in ranks]}; first K3 mask per step "
+                    f"differs between the ranks")
+            say(f"spatial mesh {shape} flagship step (bf16, 'xla16'; {card}): " + "; ".join(
+                f"rank {r} {res['flagship']['ms']:.2f} ms, peak "
+                f"{res['flagship']['peak_gib']:.2f} GiB, K1 {res['flagship']['launches']['k1']} "
+                f"launches in 3 prototype-phase steps, collectives in one step "
+                f"{res['flagship']['collectives']}" for r, res in enumerate(ranks))
+                + f"; one process {one['ms']:.2f} ms, peak {one['peak_gib']:.2f} GiB (8 + 8 "
+                f"images). The ranks share one card through gloo: not a scaling figure")
+        trainer = dp_trainer_phase(build_config, headers, tmp, 2, SPATIAL_MESHES[0], False,
+                                   "spatial")
+        for st in trainer["stats"]:
+            say(f"spatial CLI {SPATIAL_MESHES[0]} prototype-phase epoch {st['epoch']} rank "
+                f"{st['rank']}: {st['ms']:.1f} ms/step, loader wait {st['wait_ms']:.1f} ms/step, "
+                f"peak {st['peak_gib']:.2f} GiB ({card})")
+        launches = {k: sum(run["launches"][k] for run in runs) + trainer["launches"][k]
+                    for k in ("k1", "k2", "k3_fwd", "k3_bwd")}
+        say(f"spatial phase launches (all ranks): {launches}; "
+            f"{time.perf_counter() - t_phase:.1f} s")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1840,6 +1977,10 @@ def main() -> None:
     if "--dp-only" in sys.argv[1:]:
         dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, None, card)
         say("chip_smoke --dp-only: the data-parallel phase passed")
+        return
+    if "--spatial-only" in sys.argv[1:]:
+        spatial_phase(torch, np, ports, cli.build_config, LOG_HEADERS, card)
+        say("chip_smoke --spatial-only: the spatial-mesh phase passed")
         return
     mask_numbers = kernel_phase(torch, mh, batch_moments, kernel_seed)
     k3_numbers = dropout_phase(torch, F, K3)
@@ -1942,11 +2083,12 @@ def main() -> None:
         profiled = profiling_phase(torch, np, ports, profiling, mh, K3, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    dp = dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, flagship_ms, card)
+    dp, single = dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, flagship_ms, card)
+    spatial = spatial_phase(torch, np, ports, cli.build_config, LOG_HEADERS, card, single)
     # each kernel's launches over every path this run drove
     paths = (flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, *backbone_paths, remat,
              bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
-             profiled, dp)
+             profiled, dp, spatial)
     launched = {k: sum(p[k] for p in paths) for k in flagship}
     say(f"launches over the paths: {launched}")
 

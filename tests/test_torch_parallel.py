@@ -8,8 +8,8 @@ BatchLoader, the Trainer and checkpoints across processes) on the CPU:
 * world size 1: a train step and a checkpoint launch no collective, with a
   process group of one rank or none, and compute the same bits;
 * the configuration: nccl without a card or with two ranks on one card,
-  the ``('data', 'space')`` mesh, a mesh wider than the group, and several
-  processes without a coordinator raise;
+  a ``('data', 'space')`` mesh that is not the group's size, a mesh wider
+  than the group, and several processes without a coordinator raise;
 * two gloo ranks (one spawn for the file): the collectives and their
   gradients, rank 0's K1/K3 seeds against one process's, a checkpoint that
   rank 0 alone writes with each rank's generator, and the CLI in two ranks
@@ -152,8 +152,9 @@ def test_config_raises(monkeypatch):
     assert dist_lib.resolve_backend("gloo", "cuda", 2) == "gloo"
     assert dist_lib.resolve_backend(None, "cuda", 1) == "nccl"
     assert dist_lib.resolve_backend(None, "cpu", 2) == "gloo"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.check_mesh((4, 2), 8)
+    mesh.check_mesh((4, 2), 8)  # the ('data', 'space') mesh, ported since
+    with pytest.raises(ValueError, match="dist_num_processes"):
+        mesh.check_mesh((4, 2), 4)
     with pytest.raises(ValueError, match="dist_num_processes"):
         mesh.check_mesh((2,), 1)
     mesh.check_mesh(None, 1), mesh.check_mesh((1,), 2), mesh.check_mesh((2,), 2)

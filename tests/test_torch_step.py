@@ -24,8 +24,11 @@ lr (a missing or wrong update moves the median to ~lr).
 The first iteration is also run by the port in two gloo ranks (one source
 and one target image each, tests/torch_dp_ranks.py) and held to the same
 JAX step with the same tolerances: data parallelism's global moments,
-pools and averaged gradients against JAX's single-device step. The JAX
-iterations run once for the file."""
+pools and averaged gradients against JAX's single-device step. It is run
+once more on the ``('data', 'space')`` mesh ``(1, 2)``: two ranks, each
+with the top or bottom half of every image, their halo exchanges against
+JAX's single-device step at the same tolerances. The JAX iterations run
+once for the file."""
 
 import jax
 import jax.numpy as jnp
@@ -208,6 +211,20 @@ def test_two_ranks_first_iteration_matches_jax(jax_run, tmp_path):
     start, iterations = jax_run
     batch, want, jstate = iterations[0]
     ranks = dp.spawn(dp.flagship_step, tmp_path, (start, batch, T, LR_GEN, LR_DIS))
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    _check_losses(ranks[0]["metrics"], want, 0, True)
+    _check_banks(ranks[0]["banks"], jstate, 0)
+    _check_params(ranks[0]["gen"], jstate)
+
+
+def test_spatial_ranks_first_iteration_matches_jax(jax_run, tmp_path):
+    """Two gloo ranks on the ``(1, 2)`` mesh, each with one half of the rows
+    of every image of the batch, against JAX's single-device step: the
+    losses, the banks, the G params and running stats after the step, at
+    iteration 0's tolerances."""
+    start, iterations = jax_run
+    batch, want, jstate = iterations[0]
+    ranks = dp.spawn(dp.flagship_step, tmp_path, (start, batch, T, LR_GEN, LR_DIS, 2))
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
     _check_losses(ranks[0]["metrics"], want, 0, True)
     _check_banks(ranks[0]["banks"], jstate, 0)

@@ -256,9 +256,10 @@ def _two_ranks_on_cpu_with_nccl(c):
     # tests/test_torch_images.py); the case keeps its id
     pytest.param(lambda c: setattr(c.run, "save_val_images", True), None, None,
                  id="change4-save_val_images"),
-    # not ported: the spatial mesh names its ROADMAP item
-    pytest.param(lambda c: setattr(c.run, "mesh_shape", (4, 2)), NotImplementedError,
-                 "ROADMAP", id="spatial_mesh"),
+    # ported since: a ('data', 'space') mesh wider than the (one-process)
+    # group names the dist_* fields; the case keeps its id
+    pytest.param(lambda c: setattr(c.run, "mesh_shape", (4, 2)), ValueError,
+                 "dist_num_processes", id="spatial_mesh"),
 ])
 def test_out_of_slice_options_raise(change, error, match, tmp_path):
     """Options the port has not ported, and configurations it refuses,

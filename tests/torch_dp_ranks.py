@@ -1,13 +1,16 @@
-"""Helpers of the port's data-parallel CPU tests (tests/test_torch_parallel*.py,
+"""Helpers of the port's data-parallel and spatial-mesh CPU tests
+(tests/test_torch_parallel*.py, tests/test_torch_spatial*.py,
 tests/test_torch_step.py): ranks spawned with ``torch.multiprocessing``
 (``spawn``), joined through a ``file://`` URL under the test's tmp_path, one
 torch thread each; and the train-step cases run the same way in one process
-on the global batch and in each rank on its rows.
+on the global batch and in each rank on its rows (and, on the
+``('data', 'space')`` mesh, its stripe of rows of every image).
 
 No JAX here: a spawned rank imports this module, and only the port."""
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import time
@@ -20,9 +23,9 @@ import torch.multiprocessing as mp
 from uda_clr_tpu_torch import cli
 from uda_clr_tpu_torch.config import Config
 from uda_clr_tpu_torch.models import layers as port_layers
-from uda_clr_tpu_torch.parallel import reduce
+from uda_clr_tpu_torch.parallel import reduce, spatial
 from uda_clr_tpu_torch.parallel.distributed import initialize
-from uda_clr_tpu_torch.parallel.mesh import local_rows
+from uda_clr_tpu_torch.parallel.mesh import local_rows, local_stripe
 from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
 from uda_clr_tpu_torch.train import steps as steps_lib
 from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state
@@ -57,7 +60,14 @@ def global_batch(seed: int = 7, b: int = B, size: int = SIZE) -> dict:
 
 
 def rows(batch: dict, rank: int, world: int, device: str = "cpu") -> dict:
-    """A rank's rows of a global batch (source and target alike)."""
+    """A rank's rows of a global batch (source and target alike); on a
+    ``('data', 'space')`` mesh (:func:`spatial.init_mesh` called) its data
+    index's rows and its stripe of every image."""
+    if spatial.mesh() is not None:
+        (d, n_data), (s, n_space) = spatial.data_coords(), spatial.space_coords()
+        return {k: torch.from_numpy(
+            v[local_rows(len(v), d, n_data), local_stripe(v.shape[1], s, n_space)].copy()
+        ).to(device) for k, v in batch.items()}
     return {k: torch.from_numpy(v[local_rows(len(v), rank, world)].copy()).to(device)
             for k, v in batch.items()}
 
@@ -101,15 +111,31 @@ def run_case(name: str, rank: int = 0, world: int = 1, device: str = "cpu") -> d
                           **{f"bank_{k}": v for k, v in (state.proto_bank or {}).items()}})}
     if state.dis is not None:
         out["dis"] = _cpu(dict(state.dis.named_parameters()))
+    if rank > 0:  # held to rank 0's bit for bit: digests travel, not tensors
+        out = {"metrics": out["metrics"],
+               **{part: digests(out[part]) for part in ("params", "buffers", "banks")}}
     return out
 
 
-def _rank_entry(rank: int, world: int, url: str, target, args, out_dir: str):
-    """A spawned rank: one torch thread, the gloo group, ``target(rank,
-    world, *args)``, its result to out_dir/rank{r}.pt. An exception ends the
-    rank with its traceback, which ``spawn`` raises (and stops the others)."""
+def digests(tensors: dict) -> dict:
+    """{name: a digest of the tensor's dtype, shape and bytes}."""
+    def digest(v):
+        raw = v.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        return hashlib.sha256(raw).hexdigest()
+
+    return {k: (str(v.dtype), tuple(v.shape), digest(v)) for k, v in tensors.items()}
+
+
+def _rank_entry(rank: int, world: int, url: str, target, args, out_dir: str,
+                backend: str = "gloo"):
+    """A spawned rank: one torch thread, the process group (gloo, also on a
+    card; nccl with card ``rank`` as this rank's), ``target(rank, world,
+    *args)``, its result to out_dir/rank{r}.pt. An exception ends the rank
+    with its traceback, which ``spawn`` raises (and stops the others)."""
     torch.set_num_threads(1)
-    initialize(url, world, rank, backend="gloo", device="cpu")  # gloo also on a card
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    initialize(url, world, rank, backend=backend, device="cuda" if backend == "nccl" else "cpu")
     try:
         result = target(rank, world, *args)
     finally:
@@ -119,14 +145,14 @@ def _rank_entry(rank: int, world: int, url: str, target, args, out_dir: str):
 
 
 def spawn(target, tmp_path, args=(), world: int = 2, meanwhile=None,
-          timeout: float = 600.0) -> list:
+          timeout: float = 600.0, backend: str = "gloo") -> list:
     """Run ``target(rank, world, *args)`` in ``world`` spawned ranks of one
-    gloo group, and ``meanwhile()`` here while they run; returns each rank's
-    result. A rank that raises fails the call with its traceback; ranks
-    still running after ``timeout`` seconds are killed and fail it."""
+    ``backend`` group, and ``meanwhile()`` here while they run; returns each
+    rank's result. A rank that raises fails the call with its traceback;
+    ranks still running after ``timeout`` seconds are killed and fail it."""
     out_dir = str(tmp_path)
     url = f"file://{os.path.join(out_dir, 'dist_init')}"
-    ctx = mp.start_processes(_rank_entry, args=(world, url, target, args, out_dir),
+    ctx = mp.start_processes(_rank_entry, args=(world, url, target, args, out_dir, backend),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
@@ -143,10 +169,12 @@ def spawn(target, tmp_path, args=(), world: int = 2, meanwhile=None,
 
 
 def flagship_step(rank: int, world: int, start: dict, batch: dict, t: int, lr_gen: float,
-                  lr_dis: float) -> dict:
+                  lr_dis: float, n_space: int = 1) -> dict:
     """One ``prototype_full`` prototype-phase step, dropout off, from the
-    state_dicts ``start`` on this rank's rows of ``batch`` (the anchor of
-    tests/test_torch_step.py against the JAX step)."""
+    state_dicts ``start`` on this rank's rows of ``batch`` (the anchors of
+    tests/test_torch_step.py against the JAX step; ``n_space`` stripes on
+    a ``(world / n_space, n_space)`` mesh)."""
+    spatial.init_mesh((world // n_space, n_space))
     port_layers.set_dropout_impl("off")
     cfg = Config()
     cfg.method.mc_samples = t
@@ -159,7 +187,10 @@ def flagship_step(rank: int, world: int, start: dict, batch: dict, t: int, lr_ge
             "gen": state.gen.state_dict()}
 
 
-def run_cases(rank: int, world: int, names, device: str = "cpu") -> dict:
+def run_cases(rank: int, world: int, names, device: str = "cpu", n_space: int = 1) -> dict:
+    """The cases ``names`` in this rank, on a ``(world / n_space, n_space)``
+    mesh."""
+    spatial.init_mesh((world // n_space, n_space))
     return {name: run_case(name, rank, world, device) for name in names}
 
 
@@ -202,17 +233,18 @@ BANK_ATOL = 1e-4  # EMA prototype banks and the disk bank (measured <= 2.3e-5)
 DIS_RTOL = 1e-6  # the boundary D after SGD, relative to its largest entry (measured <= 4.7e-8)
 
 
-def compare_case(name: str, one: dict, ranks: list) -> list[str]:
+def compare_case(name: str, one: dict, ranks: list, metric_atol: dict = METRIC_ATOL) -> list[str]:
     """Every fault of the ranks' results against the one-process result of
     case ``name`` (empty when they agree): the ranks hold the same metrics,
     parameters, running stats and banks bit for bit, and rank 0's are held
-    to the one process within the tolerances above."""
+    to the one process within the tolerances above (``metric_atol`` by the
+    metrics' class)."""
     bad = []
     for r, res in enumerate(ranks[1:], 1):
         if res["metrics"] != ranks[0]["metrics"]:
             bad.append(f"rank {r}'s metrics differ from rank 0's")
         for part in ("params", "buffers", "banks"):
-            if any(not torch.equal(res[part][k], ranks[0][part][k]) for k in res[part]):
+            if res[part] != digests(ranks[0][part]):
                 bad.append(f"rank {r}'s {part} differ from rank 0's")
     got = ranks[0]
     tight, loose, post = CLASSES[name]
@@ -221,7 +253,7 @@ def compare_case(name: str, one: dict, ranks: list) -> list[str]:
     for cls, keys in (("tight", tight), ("loose", loose), ("post", post)):
         for k in keys & set(got["metrics"]):
             gap = abs(one["metrics"][k] - got["metrics"][k])
-            if not gap <= METRIC_ATOL[cls]:
+            if not gap <= metric_atol[cls]:
                 bad.append(f"{k} ({cls}): {one['metrics'][k]} vs {got['metrics'][k]}")
     g1, g2 = one["grads"], got["grads"]
     if set(g1) != set(g2):
@@ -334,9 +366,10 @@ def checkpoint_round_trip(rank: int, tmp: str) -> dict:
             "noise_alike": fresh.noise_generator.get_state()}
 
 
-def cli_runs(rank: int, world: int, tmp: str) -> dict:
+def cli_runs(rank: int, world: int, tmp: str, mesh_shape=None) -> dict:
     """The CLI in this rank at 32^2: a warmup epoch, then a resume for a
-    prototype-phase epoch; each from a --config with run.dist_*."""
+    prototype-phase epoch; each from a --config with run.dist_* (and
+    ``run.mesh_shape``)."""
     sys.modules["torch.utils.tensorboard"] = None  # scalars to JSONL (loads no TensorFlow)
     runs = []
     for i, extra in enumerate(([], ["--resume", os.path.join(tmp, "run", "checkpoints")])):
@@ -350,6 +383,7 @@ def cli_runs(rank: int, world: int, tmp: str) -> dict:
         cfg.run.dist_coordinator = f"file://{os.path.join(tmp, f'cli_init_{i}')}"
         cfg.run.dist_num_processes, cfg.run.dist_process_id = world, rank
         cfg.run.dist_backend = "gloo"
+        cfg.run.mesh_shape = mesh_shape
         path = os.path.join(tmp, f"rank{rank}_{i}.yaml")
         with open(path, "w") as f:
             f.write(cfg.to_yaml())
@@ -358,10 +392,179 @@ def cli_runs(rank: int, world: int, tmp: str) -> dict:
         runs.append({"epochs": trainer.epoch_stats, "gap": trainer.replica_gap,
                      "iteration": trainer.iteration, "viz_every": trainer.cfg.run.viz_every,
                      "params": {k: v.clone() for k, v in trainer.state.gen.state_dict().items()},
-                     "world": trainer.world})
+                     "world": trainer.world, "mesh": trainer.mesh is not None})
     return {"runs": runs}
 
 
 def units(rank: int, world: int, tmp: str) -> dict:
     return {"collectives": collectives(rank), "seeds": seeded_step(rank, world),
             "checkpoint": checkpoint_round_trip(rank, tmp), "cli": cli_runs(rank, world, tmp)}
+
+
+# ---- the rank side of tests/test_torch_spatial.py -------------------------
+
+# float64 inputs of the halo primitives: B images, C channels, H x W
+PB, PC, PH = 8, 4, 16
+_PURE = ("conv k3 s1", "conv k3 s2", "conv k3 d6", "conv k3 d18", "conv k7 s2", "conv k1 s2",
+         "fixed_padding d2", "fixed_padding s2", "max_pool", "bilinear up", "bilinear down",
+         "blur reflect", "masked_pool_mean", "discriminator")
+_NORMED = ("inverted_residual d2", "inverted_residual s2", "aspp")
+PRIMITIVE_NAMES = _PURE + tuple(f"{n} {norm}" for norm in ("bn", "tn") for n in _NORMED)
+
+
+def primitive_cases(norm: str = "bn") -> dict:
+    """{name: (fn of an NCHW float64 stripe, input shape, whether the output
+    is a stripe (else a value every rank holds), the module whose running
+    stats the case updates or None)}, built from fixed seeds, so every
+    process builds the same ones. The norms run in train mode with
+    ``domains=2``."""
+    from uda_clr_tpu_torch.models import layers
+    from uda_clr_tpu_torch.models.aspp import ASPP
+    from uda_clr_tpu_torch.models.gan import PatchDiscriminator
+    from uda_clr_tpu_torch.models.mobilenet import InvertedResidual
+    from uda_clr_tpu_torch.ops import augment, prototypes
+    from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
+    from uda_clr_tpu_torch.models.norm import DomainNorm2d
+
+    torch.manual_seed(0)
+
+    def conv(k, s, p, d, groups=1):
+        m = layers.Conv2d(PC, PC * 2 // groups * groups, k, s, p, d, groups=groups).double()
+        return lambda x: m(x)
+
+    def fixed(k, s, d):
+        m = layers.Conv2d(PC, PC, k, s, 0, d, groups=PC, bias=False).double()
+        return lambda x: m(layers.fixed_padding(x, k, d))
+
+    def randomize(module):
+        with torch.no_grad():
+            for n in module.modules():
+                if isinstance(n, DomainNorm2d):
+                    n.weight.uniform_(0.5, 1.5)
+                    n.bias.uniform_(-0.5, 0.5)
+        return module.double()
+
+    ir1 = randomize(InvertedResidual(PC, PC, 1, 2, 6, norm))
+    ir2 = randomize(InvertedResidual(PC, 2 * PC, 2, 1, 6, norm))
+    aspp = randomize(ASPP(PC, 16, norm))
+    dis = PatchDiscriminator(PC).double()
+    taps = torch.tensor([augment._TAP5[5], augment._TAP5[3]] * (PB // 2), dtype=torch.float64)
+    mask = (torch.rand(PB, 1, PH, PH) > 0.4).double()
+
+    def pool(x):  # masked pooling of NHWC features under a mask stripe
+        s, n = spatial.space_coords()
+        m = mask[:, :, local_stripe(PH, s, n)] if spatial.active() else mask
+        return prototypes.masked_pool_mean(x.permute(0, 2, 3, 1), m.permute(0, 2, 3, 1))
+
+    def resize(h_out, w_out):
+        return lambda x: resize_bilinear_align_corners(
+            x, (h_out // (spatial.space_coords()[1] if spatial.active() else 1), w_out))
+
+    return {
+        "conv k3 s1": (conv(3, 1, 1, 1), (PB, PC, PH, PH), True, None),
+        "conv k3 s2": (conv(3, 2, 1, 1), (PB, PC, PH, PH), True, None),
+        "conv k3 d6": (conv(3, 1, 6, 6), (PB, PC, PH, PH), True, None),
+        "conv k3 d18": (conv(3, 1, 18, 18, groups=PC), (PB, PC, PH, PH), True, None),
+        "conv k7 s2": (conv(7, 2, 3, 1), (PB, PC, PH, PH), True, None),
+        "conv k1 s2": (conv(1, 2, 0, 1), (PB, PC, PH, PH), True, None),
+        "fixed_padding d2": (fixed(3, 1, 2), (PB, PC, PH, PH), True, None),
+        "fixed_padding s2": (fixed(3, 2, 1), (PB, PC, PH, PH), True, None),
+        "max_pool": (layers.max_pool_3x3_s2, (PB, PC, PH, PH), True, None),
+        "bilinear up": (resize(4 * PH, 2 * PH), (PB, PC, PH, PH), True, None),
+        "bilinear down": (resize(PH // 4, PH // 2), (PB, PC, PH, PH), True, None),
+        "blur reflect": (lambda x: augment._blur5(x, taps), (PB, 3, PH, PH), True, None),
+        "masked_pool_mean": (pool, (PB, PC, PH, PH), False, None),
+        "discriminator": (lambda x: dis(x.permute(0, 2, 3, 1)), (PB, PC, PH, PH), False, None),
+        f"inverted_residual d2 {norm}": (lambda x: ir1(x, True, 2), (PB, PC, PH, PH), True,
+                                         ir1),
+        f"inverted_residual s2 {norm}": (lambda x: ir2(x, True, 2), (PB, PC, PH, PH), True,
+                                         ir2),
+        f"aspp {norm}": (lambda x: aspp.predrop(x, True, 2), (PB, PC, PH, PH), True, aspp),
+    }
+
+
+def run_primitive(fn, x: torch.Tensor, seed: int, striped: bool, s: int = 0,
+                  n: int = 1) -> tuple:
+    """``fn`` on stripe ``s`` of ``n`` of ``x`` (the whole for n = 1) and
+    the gradient of sum(fn(x) * w), w drawn whole from ``seed`` (a value
+    every rank holds: divided by ``n``, so that the ranks' losses sum to
+    the whole one's)."""
+    x = x[:, :, local_stripe(x.shape[2], s, n)].clone().requires_grad_()
+    y = fn(x)
+    shape = list(y.shape)
+    if striped:
+        shape[2] *= n
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    if striped:
+        w = w[:, :, local_stripe(shape[2], s, n)]
+    ((y * w).sum() / (1 if striped else n)).backward()
+    return y.detach(), x.grad
+
+
+def primitive_input(shape, seed: int) -> torch.Tensor:
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed),
+                       dtype=torch.float64)
+
+
+def run_primitives(s: int = 0, n: int = 1) -> dict:
+    """Every primitive case under both norms on stripe ``s`` of ``n``
+    (inside the spatial region when n > 1): {name: (output, the input's
+    gradient, the case's running stats after the call)}."""
+    out = {}
+    for norm in ("bn", "tn"):
+        for i, (name, (fn, shape, striped, module)) in enumerate(primitive_cases(norm).items()):
+            if name in out:
+                continue
+            with spatial.region():
+                y, grad = run_primitive(fn, primitive_input(shape, i), 100 + i, striped, s, n)
+            stats = {} if module is None else {k: v.clone() for k, v in module.named_buffers()}
+            out[name] = (y, grad, stats, striped)
+    assert tuple(out) == PRIMITIVE_NAMES, tuple(out)
+    return out
+
+
+BACKBONES = ("resnet", "xception", "drn")
+
+
+def run_backbones(s: int = 0, n: int = 1) -> dict:
+    """Each other backbone's train-mode forward (bn, ``domains=2``,
+    float64, the norms' moments summed in float32) of 2 + 2 images at 32^2
+    on stripe ``s`` of ``n``: {name: (high, low, the input's gradient, the
+    running stats after it)}."""
+    from uda_clr_tpu_torch.models.deeplab import build_backbone
+
+    out = {}
+    for i, name in enumerate(BACKBONES):
+        torch.manual_seed(i)
+        net = build_backbone(name, 16 if name != "drn" else 8, "bn", False).double()
+        x = torch.randn((4, 3, 32, 32), generator=torch.Generator().manual_seed(i),
+                        dtype=torch.float64)
+        x = x[:, :, local_stripe(32, s, n)].clone().requires_grad_()
+        with spatial.region():
+            high, low = net(x, True, 2)
+            g = torch.Generator().manual_seed(10 + i)
+            loss = 0.0
+            for y in (high, low):
+                w = torch.randn((y.shape[0], y.shape[1], y.shape[2] * n, y.shape[3]), generator=g,
+                                dtype=torch.float64)
+                loss = loss + (y * w[:, :, local_stripe(w.shape[2], s, n)]).sum()
+            loss.backward()
+        out[name] = (high.detach(), low.detach(), x.grad,
+                     {k: v.clone() for k, v in net.named_buffers()})
+    return out
+
+
+def mesh_units(rank: int, world: int, n_space: int, names, tmp: str | None = None) -> dict:
+    """This rank on a ``(world / n_space, n_space)`` mesh: on one data
+    index, :func:`run_primitives` on its stripe; the step cases ``names``;
+    with ``tmp``, the other
+    backbones (:func:`run_backbones`) and the CLI on that mesh
+    (:func:`cli_runs`)."""
+    spatial.init_mesh((world // n_space, n_space))
+    out = {"cases": {name: run_case(name, rank, world) for name in names}}
+    if world == n_space:
+        out["primitives"] = run_primitives(rank, world)
+    if tmp is not None:
+        out["backbones"] = run_backbones(rank, world)
+        out["cli"] = cli_runs(rank, world, tmp, (world // n_space, n_space))
+    return out

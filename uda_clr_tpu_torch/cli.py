@@ -17,6 +17,10 @@ Examples:
   python -m uda_clr_tpu_torch.cli --config rank0.yaml &
   python -m uda_clr_tpu_torch.cli --config rank1.yaml
 
+  # the ('data', 'space') mesh: the same, with run.mesh_shape: [n_data,
+  # n_space] and dist_num_processes n_data * n_space in every rank's YAML;
+  # rank r takes data index r // n_space and stripe r % n_space of the rows
+
 Across processes each rank prints, after training, one line
 ``rank summary: {json}`` with its epochs' stats, its kernel launches and
 the parameters' largest difference from rank 0's (0.0).

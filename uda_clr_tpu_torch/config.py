@@ -117,7 +117,9 @@ class RunConfig:
     seed: int = 1337
     resume: Optional[str] = None
     initial_resume: Optional[str] = None  # BEAL warm-start checkpoint
-    mesh_shape: Optional[tuple] = None  # None, (1,) or (dist_num_processes,)
+    # None, (1,), (dist_num_processes,) or (n_data, n_space) with n_data * n_space
+    # = dist_num_processes: the ('data', 'space') mesh (parallel/spatial.py)
+    mesh_shape: Optional[tuple] = None
     # data parallelism across processes (parallel/distributed.py), one per
     # device: dist_coordinator "host:port" of rank 0 (or a file:// URL)
     # enables it; each process loads 1/dist_num_processes of every global

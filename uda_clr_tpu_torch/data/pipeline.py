@@ -34,6 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from uda_clr_tpu_torch.parallel.mesh import local_stripe
+
 _BATCH_KEYS = ("image", "map", "boundary")
 
 # fork-inherited dataset handle for process-backend workers: passed once
@@ -82,13 +84,21 @@ class BatchLoader:
         backend: str = "thread",
         process_index: int = 0,
         process_count: int = 1,
+        space_index: int = 0,
+        space_count: int = 1,
     ):
         """``process_index``/``process_count``: data parallelism across
-        processes (parallel/distributed.py). Every process derives the same
+        processes (parallel/distributed.py); on the ``('data', 'space')``
+        mesh the data index and ``n_data``. Every process derives the same
         global epoch order and batch composition from the shared seed, then
         loads only its ``batch_size // process_count`` slice of each global
         batch; per-sample rngs stay keyed by the global position
-        ``(seed, epoch, bi, global_j)``."""
+        ``(seed, epoch, bi, global_j)``. ``space_index``/``space_count``:
+        the spatial mesh's stripes (parallel/spatial.py): the loader then
+        keeps rows ``[s*H/n, (s+1)*H/n)`` of every per-pixel array, on
+        either wire format. The ranks of one data index augment the same
+        samples whole, each keeping its stripe: duplicate host work, n_space
+        times over."""
         if backend not in ("thread", "process"):
             raise ValueError(
                 f"BatchLoader backend must be 'thread' or 'process', got {backend!r}"
@@ -118,6 +128,10 @@ class BatchLoader:
         self.backend = backend
         self.process_index = process_index
         self.process_count = process_count
+        if not 0 <= space_index < space_count:
+            raise ValueError(f"space_index {space_index} out of range [0, {space_count})")
+        self.space_index = space_index
+        self.space_count = space_count
 
     def __len__(self):
         n = len(self.dataset)
@@ -172,7 +186,7 @@ class BatchLoader:
                 if self.process_count > 1:
                     idx = idx[lo : lo + per]
                 keys = [(self.seed, epoch, bi, lo + j) for j in range(len(idx))]
-                if not _put(collate(map_samples(idx, keys))):
+                if not _put(self._stripe(collate(map_samples(idx, keys)))):
                     return False
             return True
 
@@ -212,6 +226,15 @@ class BatchLoader:
                 yield item
         finally:
             stop.set()
+
+    def _stripe(self, batch: dict) -> dict:
+        """This rank's stripe of rows of every per-pixel array (NHWC)."""
+        if self.space_count == 1:
+            return batch
+        for k in _BATCH_KEYS:
+            rows = local_stripe(batch[k].shape[1], self.space_index, self.space_count)
+            batch[k] = np.ascontiguousarray(batch[k][:, rows])
+        return batch
 
     def forever(self, start_batch: int = 0):
         """Endless batch stream (target-domain loader cycling,

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from uda_clr_tpu_torch.models.layers import Conv2d, DropoutStream, dropout
 from uda_clr_tpu_torch.models.norm import DomainNorm2d
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
+from uda_clr_tpu_torch.parallel import spatial
 
 
 class _ASPPBranch(nn.Module):
@@ -52,11 +53,34 @@ class ASPP(nn.Module):
     def predrop(self, x: torch.Tensor, train: bool, domains: int = 1) -> torch.Tensor:
         """All of ASPP except the final Dropout(0.5)."""
         branches = [m(x, train, domains) for m in (self.aspp1, self.aspp2, self.aspp3, self.aspp4)]
-        pool, conv, bn = self.global_avg_pool
-        pooled = F.relu(bn(conv(pool(x)), train, domains))
-        branches.append(resize_bilinear_align_corners(pooled, tuple(x.shape[2:])))
+        if spatial.active():
+            branches.append(self._pool_branch_spatial(x, train, domains))
+        else:
+            pool, conv, bn = self.global_avg_pool
+            pooled = F.relu(bn(conv(pool(x)), train, domains))
+            branches.append(resize_bilinear_align_corners(pooled, tuple(x.shape[2:])))
         h = self.conv1(torch.cat(branches, dim=1))
         return F.relu(self.bn1(h, train, domains))
+
+    def _pool_branch_spatial(self, x, train: bool, domains: int):
+        """The image-pool branch under the spatial mesh: the mean over H and
+        W through a sum over the space group, then, in train mode, each
+        space rank runs the 1x1 conv and norm on its share of the images
+        (of each domain's half where the norm splits the batch) and the
+        shares are gathered, so that the norm's batch statistics count
+        every image once; the pooled map broadcast over this stripe (the
+        align-corners resize of a 1x1 map)."""
+        _, conv, bn = self.global_avg_pool
+        rows = x.shape[2] * spatial.space_coords()[1]
+        pooled = (spatial.space_sum(x.float().sum((2, 3), keepdim=True))
+                  / (rows * x.shape[3])).to(x.dtype)
+        if not train:
+            y = F.relu(bn(conv(pooled), train, domains))
+        else:
+            groups = 2 if domains == 2 or (bn.mode == "tn" and domains != 0) else 1
+            y = F.relu(bn(conv(spatial.batch_share(pooled, groups)), train, domains))
+            y = spatial.gather_batch(y, groups)
+        return y.expand(-1, -1, x.shape[2], x.shape[3])
 
     def drop(self, h, train: bool, stream: DropoutStream | None):
         return dropout(h, 0.5, stream, train)

@@ -19,16 +19,21 @@ from torch.utils.checkpoint import checkpoint
 from uda_clr_tpu_torch.models.norm import DomainNorm2d, frozen_stats
 from uda_clr_tpu_torch.ops.dropout import fused_dropout
 from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
+from uda_clr_tpu_torch.parallel import spatial
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 weight (and bias) is cast to the input's
-    dtype, as flax's ``nn.Conv(dtype=..., param_dtype=float32)`` does."""
+    dtype, as flax's ``nn.Conv(dtype=..., param_dtype=float32)`` does.
+    Under the spatial mesh its H padding is halo rows from the neighbouring
+    stripes (parallel/spatial.py); a conv without H padding reads its own
+    rows or those its caller fetched (:func:`fixed_padding`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+        conv = spatial.conv2d if spatial.active() else F.conv2d
+        return conv(x, self.weight.to(x.dtype), bias, self.stride,
+                    self.padding, self.dilation, self.groups)
 
 
 def init_conv_(conv: nn.Conv2d, generator: torch.Generator, std: float | None = None):
@@ -44,19 +49,30 @@ def init_conv_(conv: nn.Conv2d, generator: torch.Generator, std: float | None = 
             conv.bias.zero_()
 
 
+def fixed_pads(kernel_size: int, dilation: int) -> tuple[int, int]:
+    """(before, after) padding of :func:`fixed_padding` on each axis."""
+    pad_total = kernel_size + (kernel_size - 1) * (dilation - 1) - 1
+    return pad_total // 2, pad_total - pad_total // 2
+
+
 def fixed_padding(x: torch.Tensor, kernel_size: int, dilation: int) -> torch.Tensor:
     """Pre-pad for 'same' output under stride (layers.py:57-68). MobileNet
-    pads the *block input*, so the expansion conv's BN sees the border."""
-    k_eff = kernel_size + (kernel_size - 1) * (dilation - 1)
-    pad_total = k_eff - 1
-    beg = pad_total // 2
-    end = pad_total - beg
+    pads the *block input*, so the expansion conv's BN sees the border.
+    Under the spatial mesh the rows come from the neighbouring stripes
+    (zeros at the image's edges)."""
+    beg, end = fixed_pads(kernel_size, dilation)
+    if spatial.active():
+        return F.pad(spatial.halo_rows(x, beg, end), (beg, end, 0, 0))
     return F.pad(x, (beg, end, beg, end))
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """ResNet's stem pool, ``nn.MaxPool2d(3, 2, 1)`` (uda_clr_tpu/models/resnet.py
-    :18-20): the border pads with -inf, not 0."""
+    :18-20): the border pads with -inf, not 0 (under the spatial mesh the
+    row above a stripe is its neighbour's, -inf above the image)."""
+    if spatial.active():
+        top, bottom = spatial.conv_halo(3, 2, 1, 1, x.shape[2])
+        return F.max_pool2d(spatial.halo_rows(x, top, bottom, "-inf"), 3, 2, (0, 1))
     return F.max_pool2d(x, 3, 2, 1)
 
 

@@ -6,9 +6,17 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from uda_clr_tpu_torch.models.layers import Conv2d, fixed_padding, run_block, run_layers
+from uda_clr_tpu_torch.models.layers import (
+    Conv2d,
+    fixed_padding,
+    fixed_pads,
+    run_block,
+    run_layers,
+)
 from uda_clr_tpu_torch.models.norm import DomainNorm2d
+from uda_clr_tpu_torch.parallel import spatial
 
 # (expand_ratio t, channels c, repeats n, stride s)
 _INVERTED_RESIDUAL_SETTINGS = (
@@ -48,6 +56,7 @@ class InvertedResidual(nn.Module):
         super().__init__()
         hidden = round(inp * t)
         self.dilation = dilation
+        self.n_expand = 0 if t == 1 else 3  # the pointwise layers before the depthwise conv
         self.use_res = stride == 1 and inp == oup
         dw = Conv2d(hidden, hidden, 3, stride, 0, dilation, groups=hidden, bias=False)
         layers = [] if t == 1 else [
@@ -58,7 +67,19 @@ class InvertedResidual(nn.Module):
         self.conv = nn.ModuleList(layers)
 
     def forward(self, x, train: bool, domains: int = 1):
-        h = run_layers(self.conv, fixed_padding(x, 3, self.dilation), train, domains)
+        if not spatial.active():
+            h = run_layers(self.conv, fixed_padding(x, 3, self.dilation), train, domains)
+        else:
+            # the expansion is pointwise: it runs on this stripe padded at the
+            # image's edges only, so its norm counts every padded row once
+            # (the stripes are then uneven: the norm takes the all-summed
+            # count), then the depthwise conv's halo rows come from the
+            # neighbouring stripes
+            beg, end = fixed_pads(3, self.dilation)
+            h = spatial.edge_pad(F.pad(x, (beg, end, 0, 0)), beg, end)
+            h = run_layers(self.conv[:self.n_expand], h, train, domains)
+            h = spatial.halo_rows(h, beg, end, edge=(beg, end))
+            h = run_layers(self.conv[self.n_expand:], h, train, domains)
         return x + h if self.use_res else h
 
 

@@ -11,7 +11,11 @@
 * Under data parallelism the moments are those of the global batch: each
   norm site all-sums its packed float32 [sum x, sum x^2, count] over the
   ranks in one collective (TransNorm's two halves share it), and ``n`` is
-  the global count (every rank holds an equal shard).
+  the global count (every rank holds an equal shard). On the ``('data',
+  'space')`` mesh the stripes are shards too, so the same sums give the
+  global moments; there ``n`` is the all-summed count, since a stripe may
+  hold the image's padding rows (MobileNet's expansion) and the shards
+  need not be equal.
 
 TransNorm keeps per-domain running stats with a shared affine, and scales
 each channel by the detached transferability factor ``a1 = 1 + C p / sum(p)``,
@@ -35,20 +39,26 @@ import math
 import torch
 import torch.nn as nn
 
+from uda_clr_tpu_torch.parallel import spatial
 from uda_clr_tpu_torch.parallel.distributed import world_size
 from uda_clr_tpu_torch.parallel.reduce import all_sum
 
 
-def batch_moments_parts(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """float32 mean and biased variance of each tensor in ``xs`` over
-    ``dims``, over the global batch: under data parallelism one packed
-    ``all_sum`` of every part's [sum x, sum x^2] and its count."""
+def _moments(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor, object]]:
+    """float32 mean, biased variance and count ``n`` of each tensor in
+    ``xs`` over ``dims``, over the global batch: under data parallelism one
+    packed ``all_sum`` of every part's [sum x, sum x^2] and its count. ``n``
+    is a Python int (the local count times the world size: equal shards),
+    except under the spatial mesh, where it is the all-summed count (a 0-d
+    tensor): a stripe may carry the image's padding rows (MobileNet's
+    expansion), so the stripes' counts need not be equal."""
     if world_size() == 1:
         out = []
         for x in xs:
             x32 = x.float()
             mean = x32.mean(dims)
-            out.append((mean, torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)))
+            out.append((mean, torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0),
+                        math.prod(x.shape[d] for d in dims)))
         return out
     sums, shapes, counts = [], [], []
     for x in xs:
@@ -64,15 +74,28 @@ def batch_moments_parts(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor]]:
         size = math.prod(shape)
         mean = packed[offset:offset + size].reshape(shape) / n[i]
         ex2 = packed[offset + size:offset + 2 * size].reshape(shape) / n[i]
-        out.append((mean, torch.clamp(ex2 - mean * mean, min=0.0)))
+        count = n[i].detach() if spatial.active() else counts[i] * world_size()
+        out.append((mean, torch.clamp(ex2 - mean * mean, min=0.0), count))
         offset += 2 * size
     return out
+
+
+def batch_moments_parts(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """float32 mean and biased variance of each tensor in ``xs`` over
+    ``dims``, over the global batch (:func:`_moments`)."""
+    return [(mean, var) for mean, var, _ in _moments(xs, dims)]
 
 
 def batch_moments(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """float32 mean and biased variance over ``dims`` (of the global batch
     under data parallelism)."""
     return batch_moments_parts([x], dims)[0]
+
+
+def _unbias(n):
+    """n / (n - 1), the running variance's factor, for a count that is an
+    int or a 0-d tensor."""
+    return n / (n - 1).clamp(min=1) if torch.is_tensor(n) else n / max(n - 1, 1)
 
 
 def normalize(x, mean, var, scale, bias, eps: float = 1e-5):
@@ -134,7 +157,7 @@ class DomainNorm2d(nn.Module):
         if not self.update_stats:
             return
         m = self.momentum
-        unbias = n / max(n - 1, 1)
+        unbias = _unbias(n)
         sfx = f"_{domain}" if domain else ""
         r_mean, r_var = getattr(self, "running_mean" + sfx), getattr(self, "running_var" + sfx)
         r_mean.copy_((1.0 - m) * r_mean + m * mean)
@@ -147,7 +170,6 @@ class DomainNorm2d(nn.Module):
                                  self.running_mean_target, self.running_var_target, eps)
             return normalize(x, self.running_mean_target, self.running_var_target,
                              scale * a1, bias * a1, eps)
-        n_pix = x.shape[2] * x.shape[3] * world_size()  # global count per local image
         if domains == 0:
             mu, v = batch_moments(x, (0, 2, 3))
             return normalize(x, mu, v, scale * 2.0, bias * 2.0, eps)
@@ -159,7 +181,7 @@ class DomainNorm2d(nn.Module):
             # the reference's uneven b//2 split (batchnorm.py:439-442)
             halves = (x[:b], x[b:])
             moments = [batch_moments(h, (0, 2, 3)) for h in halves]
-            counts = [h.shape[0] * n_pix for h in halves]
+            counts = [h.shape[0] * x.shape[2] * x.shape[3] for h in halves]
             for (mu, v), n, dom in zip(moments, counts, ("source", "target")):
                 self._ema(mu.detach(), v.detach(), n, dom)
             (mu_s, v_s), (mu_t, v_t) = moments
@@ -169,12 +191,11 @@ class DomainNorm2d(nn.Module):
                                  mu_t.detach(), v_t.detach() * ub_t, eps)
             return torch.cat([normalize(h, mu, v, scale * a1, bias * a1, eps)
                               for h, (mu, v) in zip(halves, moments)], dim=0)
-        n = b * n_pix
         x2 = x.unflatten(0, (2, b))  # [2, b, C, H, W]
-        mu2, v2 = batch_moments(x2, (1, 3, 4))  # [2, C]
+        mu2, v2, n = _moments([x2], (1, 3, 4))[0]  # [2, C]; n per half, global
         self._ema(mu2[0].detach(), v2[0].detach(), n, "source")
         self._ema(mu2[1].detach(), v2[1].detach(), n, "target")
-        vu = v2.detach() * (n / max(n - 1, 1))
+        vu = v2.detach() * _unbias(n)
         a1 = transfer_factor(mu2[0].detach(), vu[0], mu2[1].detach(), vu[1], eps)
         z = normalize(x2, mu2[:, None, :], v2[:, None, :], (scale * a1).expand(2, 1, -1),
                       bias * a1, eps)
@@ -186,16 +207,15 @@ class DomainNorm2d(nn.Module):
         if not train:
             return normalize(x, self.running_mean, self.running_var,
                              self.weight, self.bias, self.eps)
-        n_pix = x.shape[2] * x.shape[3] * world_size()  # global count per local image
         if domains <= 1:
-            mu, v = batch_moments(x, (0, 2, 3))
-            self._ema(mu.detach(), v.detach(), x.shape[0] * n_pix)
+            mu, v, n = _moments([x], (0, 2, 3))[0]
+            self._ema(mu.detach(), v.detach(), n)
             return normalize(x, mu, v, self.weight, self.bias, self.eps)
         b = x.shape[0] // 2
         x2 = x.unflatten(0, (2, b))  # [2, b, C, H, W]
-        mu2, v2 = batch_moments(x2, (1, 3, 4))  # [2, C]
-        self._ema(mu2[1].detach(), v2[1].detach(), b * n_pix)
-        self._ema(mu2[0].detach(), v2[0].detach(), b * n_pix)
+        mu2, v2, n = _moments([x2], (1, 3, 4))[0]  # [2, C]; n per half, global
+        self._ema(mu2[1].detach(), v2[1].detach(), n)
+        self._ema(mu2[0].detach(), v2[0].detach(), n)
         scale = self.weight.expand(2, -1)
         z = normalize(x2, mu2[:, None, :], v2[:, None, :], scale[:, None, :],
                       self.bias, self.eps)

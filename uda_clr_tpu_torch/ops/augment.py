@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from uda_clr_tpu_torch.ops.philox import philox_words
+from uda_clr_tpu_torch.parallel import spatial
 
 N_DRAWS = 9
 # cv2.getGaussianKernel(k, 0) for k = 3 and 5, as 5 taps (zero ends for k=3)
@@ -88,10 +89,15 @@ def _hsv_to_rgb(hsv):
 
 def _blur5(x, taps):
     """Separable 5-tap blur of NCHW ``x`` with per-image taps [B, 5], rows
-    first, reflect-101 border."""
+    first, reflect-101 border. Under the spatial mesh a stripe's rows
+    above and below come from its neighbours, reflected at the image's
+    true edge only."""
     h, w = x.shape[2], x.shape[3]
     k = [taps[:, i].reshape(-1, 1, 1, 1) for i in range(5)]
-    xp = F.pad(x, (0, 0, 2, 2), mode="reflect")
+    if spatial.active():
+        xp = spatial.halo_rows(x, 2, 2, "reflect")
+    else:
+        xp = F.pad(x, (0, 0, 2, 2), mode="reflect")
     acc = k[0] * xp[:, :, 0:h]
     for i in range(1, 5):
         acc = acc + k[i] * xp[:, :, i:i + h]

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
+from uda_clr_tpu_torch.parallel import spatial
 from uda_clr_tpu_torch.parallel.distributed import world_size
 from uda_clr_tpu_torch.parallel.reduce import all_max, all_min, all_sum
 
@@ -149,9 +150,17 @@ def masked_pool_mean(feature: torch.Tensor, mask: torch.Tensor, eps: float = 1.0
     """Per-image masked pooling with a smoothed denominator, then the batch
     mean: ``mean_b(sum_hw(feature * mask) / (sum_hw(mask) + eps))``
     (prototypes.py:255-269). eps is +1, or +1e-16 for the cup/disc pools of
-    the ``bank_use_bu=False`` ablation. [B,h,w,C] x [B,h,w,1] -> [C]."""
+    the ``bank_use_bu=False`` ablation. [B,h,w,C] x [B,h,w,1] -> [C].
+    Under the spatial mesh an image's sums span its stripes: ``num`` and
+    ``den`` are summed over the space group first, so every rank of the
+    group holds the image's ratio, and the world sum counts each image
+    n_space times over B_local * world = B * n_space."""
     num = torch.sum(feature * mask, dim=(1, 2))  # [B, C]
-    den = torch.sum(mask, dim=(1, 2)) + eps  # [B, 1]
+    den = torch.sum(mask, dim=(1, 2))  # [B, 1]
+    if spatial.active():
+        packed = spatial.space_sum(torch.cat([num, den], dim=1))
+        num, den = packed[:, :-1], packed[:, -1:]
+    den = den + eps
     if world_size() > 1:  # the global sum over B over the global B
         return all_sum(torch.sum(num / den, dim=0)) / (num.shape[0] * world_size())
     return torch.mean(num / den, dim=0)

@@ -168,5 +168,9 @@ def barrier() -> None:
 
 
 def shutdown() -> None:
+    """End the process group, and the spatial mesh's groups with it."""
+    from uda_clr_tpu_torch.parallel import spatial  # spatial imports this module
+
+    spatial.clear()
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -37,6 +37,14 @@ noise are drawn for the global batch, each rank taking its rows; dropout
 draws per rank (the rank folded into the seeds, rank 0 drawing the
 single-process streams).
 
+On the ``('data', 'space')`` mesh (parallel/spatial.py) a step runs inside
+``spatial.region()`` on its data index's rows and its stripe of rows of
+every image: the convs, the max pool, the resizes and the blur read their
+neighbours' rows, the per-image pools and ASPP's image pool sum over the
+space group, the discriminators run on gathered inputs; the global draws
+take this data index's rows (over ``n_data``) and this stripe. K1 and K3
+run on each rank's stripe, with global moments.
+
 A uint8 wire batch is decoded to float32 first (data/wire.py), as the JAX
 step does (steps.py:559). bf16: the batch is then cast to
 ``cfg.model.compute_dtype`` once; every conv
@@ -69,7 +77,8 @@ from uda_clr_tpu_torch.ops.mask_head import fused_mask_head_split
 from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 from uda_clr_tpu_torch.parallel import distributed as dist_lib
-from uda_clr_tpu_torch.parallel.mesh import local_rows
+from uda_clr_tpu_torch.parallel import spatial
+from uda_clr_tpu_torch.parallel.mesh import check_stripes, local_rows, local_stripe
 from uda_clr_tpu_torch.parallel.reduce import all_sum, average_grads, mean_metrics
 from uda_clr_tpu_torch.train import optim as optim_lib
 from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
@@ -98,8 +107,9 @@ def stream_seed(step_seed: int, stream: int) -> int:
 
 
 def _conv(x, weight, padding: int, bias=None):
-    return torch.nn.functional.conv2d(
-        x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), padding=padding)
+    conv = spatial.conv2d if spatial.active() else torch.nn.functional.conv2d
+    return conv(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), (1, 1),
+                (padding, padding), (1, 1), 1)
 
 
 @torch.no_grad()
@@ -217,6 +227,14 @@ def bcdm_seg_loss(outs: DeepLabOutputs, map_s, boundary_s, temperature: float = 
     return L.bce_sigmoid_stable(o, map_s) + L.mse(torch.sigmoid(bd), boundary_s)
 
 
+def _check_stripes(gen: DeepLab, image: torch.Tensor) -> None:
+    """Under the spatial mesh: the image's rows (n_space stripes of this
+    one's) split evenly at every stride-2 stage of ``gen``."""
+    if spatial.active():
+        n = spatial.space_coords()[1]
+        check_stripes(image.shape[1] * n, n, gen.output_stride)
+
+
 def make_bcdm_step(cfg: Config):
     """The bi-classifier discrepancy step (uda_clr_tpu/train/steps.py
     :304-491): F = gen's backbone, C1 = gen's heads, C2 = ``state.cls2``,
@@ -243,7 +261,12 @@ def make_bcdm_step(cfg: Config):
     w = BCDM_CDD_WEIGHT
 
     def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
+        with spatial.region():
+            return _step(state, batch, lr_gen, lr_dis)
+
+    def _step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float):
         batch = decode_batch(batch)  # uint8 wire batches -> float32
+        _check_stripes(state.gen, batch["image_s"])
         gen, cls2, g, opt = state.gen, state.cls2, state.generator, state.bcdm_opt
         step_seed = dist_lib.rank_seed(kernel_seed(state.seed, state.step))
         image_s = nchw(batch["image_s"].to(dt))
@@ -342,11 +365,18 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     dt = cfg.model.dtype
 
     def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
+        with spatial.region():
+            return _step(state, batch, lr_gen, lr_dis, epoch)
+
+    def _step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch):
         batch = decode_batch(batch)  # uint8 wire batches -> float32
+        _check_stripes(state.gen, batch["image_s"])
         gen, g = state.gen, state.generator
-        world, rank = dist_lib.world_size(), dist_lib.rank()
+        # the global-batch draws take this data index's rows (and stripe)
+        d_index, n_data = spatial.data_coords()
+        s_index, n_space = spatial.space_coords()
         global_seed = kernel_seed(state.seed, state.step)
-        step_seed = dist_lib.rank_seed(global_seed, rank)  # K1 and dropout: per rank
+        step_seed = dist_lib.rank_seed(global_seed)  # K1 and dropout: per rank
         image_s = batch["image_s"].to(dt)
         map_s, boundary_s = batch["map_s"], batch["boundary_s"]
         b = image_s.shape[0]
@@ -360,12 +390,14 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
         if use_teacher:
             t_in = image_t
             if mcfg.teacher_noise > 0.0:
-                # drawn for the global batch; this rank's rows
-                n_t = image_t.shape[0] * world
-                noise = torch.randn((n_t,) + tuple(image_t.shape[1:]), device=image_t.device,
+                # drawn for the global batch; this rank's rows and stripe
+                n_t, rows = image_t.shape[0] * n_data, image_t.shape[1] * n_space
+                noise = torch.randn((n_t, rows) + tuple(image_t.shape[2:]),
+                                    device=image_t.device,
                                     generator=g if state.noise_generator is None
                                     else state.noise_generator)
-                noise = noise[local_rows(n_t, rank, world)]
+                noise = noise[local_rows(n_t, d_index, n_data),
+                              local_stripe(rows, s_index, n_space)]
                 t_in = image_t + (mcfg.teacher_noise * noise).to(dt)
             with torch.no_grad():
                 teacher_out = state.teacher(t_in, train=False)
@@ -454,9 +486,9 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             # the MC-std confidence masks nearest-upsampled to the image
             pseudo = (torch.sigmoid(o_t.detach()) > consistency_threshold(epoch)).float()
             conf = nhwc(resize_nearest(nchw(rect.conf_mask.detach()), hw))
-            # drawn for the global batch; this rank's rows
-            draws = augment_draws(stream_seed(global_seed, _AUG_DRAWS), b * world,
-                                  image_t.device)[local_rows(b * world, rank, world)]
+            # drawn for the global batch; this data index's rows
+            draws = augment_draws(stream_seed(global_seed, _AUG_DRAWS), b * n_data,
+                                  image_t.device)[local_rows(b * n_data, d_index, n_data)]
             x_aug = strong_augment(image_t.float(), draws).to(dt)
             aug_stream = layers_lib.DropoutStream(g, stream_seed(step_seed, _AUG_FORWARD))
             with frozen_stats(gen), torch.set_grad_enabled(mcfg.aug_backward):
@@ -464,8 +496,8 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             per_px = L.bce_sigmoid_stable_elementwise(o_aug, pseudo)
             # a data-dependent denominator: N * local sum / global sum
             loss_aug = mcfg.aug_weight * torch.sum(per_px * conf) / all_sum(torch.sum(conf))
-            if world > 1:
-                loss_aug = loss_aug * world
+            if dist_lib.world_size() > 1:
+                loss_aug = loss_aug * dist_lib.world_size()
             if mcfg.aug_backward:
                 loss = loss + loss_aug
             metrics["loss_aug"] = loss_aug

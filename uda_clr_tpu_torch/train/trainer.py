@@ -35,10 +35,14 @@ as in JAX. ``epoch_stats`` hold the global img/s and this rank's loader
 wait, and after training the ranks check that they hold the same
 parameters bit for bit.
 
-Not ported, raising ``NotImplementedError``: the ``('data', 'space')``
-spatial mesh (ROADMAP). An orbax checkpoint directory as ``initial_resume``
-raises naming ``convert_orbax_checkpoint.py``, which turns it into a
-``.pth.tar``.
+The ``('data', 'space')`` mesh (``run.mesh_shape: [n_data, n_space]`` with
+``dist_num_processes = n_data * n_space``; parallel/spatial.py): the train
+loaders take the data index over ``n_data`` and keep this rank's stripe of
+rows, the train step reads across stripes, and validation stays
+replicated on whole images (the step alone enters the spatial region).
+
+An orbax checkpoint directory as ``initial_resume`` raises naming
+``convert_orbax_checkpoint.py``, which turns it into a ``.pth.tar``.
 """
 
 from __future__ import annotations
@@ -56,8 +60,10 @@ from uda_clr_tpu_torch.data.fundus import FundusSegmentation
 from uda_clr_tpu_torch.data.pipeline import BatchLoader
 from uda_clr_tpu_torch.data.synthetic import SyntheticFundus
 from uda_clr_tpu_torch.data.transforms import eval_transforms, train_transforms
+from uda_clr_tpu_torch.models.deeplab import effective_output_stride
 from uda_clr_tpu_torch.parallel import distributed as dist_lib
-from uda_clr_tpu_torch.parallel.mesh import check_mesh
+from uda_clr_tpu_torch.parallel import spatial
+from uda_clr_tpu_torch.parallel.mesh import check_mesh, check_stripes
 from uda_clr_tpu_torch.parallel.reduce import broadcast_, replica_gap
 from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
 from uda_clr_tpu_torch.train import optim as optim_lib
@@ -73,9 +79,8 @@ _ADVERSARIAL_METHODS = {"adversarial", "posal", "prototype", "prototype_full", "
 
 
 def _not_ported(cfg: Config) -> None:
-    """Raise, before any process group forms, for the spatial mesh, a mesh
-    that is not the configured group of processes, and an orbax
-    ``initial_resume``."""
+    """Raise, before any process group forms, for a mesh that is not the
+    configured group of processes, and an orbax ``initial_resume``."""
     run = cfg.run
     check_mesh(run.mesh_shape, run.dist_num_processes if run.dist_coordinator else 1)
     if run.initial_resume and not run.initial_resume.endswith((".pth", ".pth.tar")):
@@ -107,6 +112,11 @@ class Trainer:
         self.device = dist_lib.rank_device(device)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        self.mesh = spatial.init_mesh(cfg.run.mesh_shape)
+        (d_index, self.n_data), (s_index, n_space) = spatial.data_coords(), spatial.space_coords()
+        if self.mesh is not None:
+            check_stripes(cfg.data.image_size, n_space,
+                          effective_output_stride(cfg.model.backbone, cfg.model.output_stride))
         os.makedirs(cfg.run.out_dir, exist_ok=True)
         if self._main:
             with open(os.path.join(cfg.run.out_dir, "config.yaml"), "w") as f:
@@ -136,9 +146,10 @@ class Trainer:
                                              eval_transforms(size, wire=wire_fmt))
 
         bs, nw, lb = cfg.data.batch_size, cfg.data.num_workers, cfg.data.loader_backend
-        # each rank loads its rows of every global batch; validation is
-        # unsharded (it runs replicated)
-        shard = dict(process_index=self.rank, process_count=self.world)
+        # each rank loads its rows (and stripe) of every global batch;
+        # validation is unsharded (it runs replicated)
+        shard = dict(process_index=d_index, process_count=self.n_data, space_index=s_index,
+                     space_count=n_space)
         self.loader_s = BatchLoader(self.ds_s, bs, shuffle=True, seed=cfg.run.seed,
                                     num_workers=nw, backend=lb, **shard)
         self.loader_t = BatchLoader(self.ds_t, bs, shuffle=False, seed=cfg.run.seed + 1,
@@ -302,7 +313,7 @@ class Trainer:
                 # the device tiles and the host batch; written after the epoch
                 viz_pending.append((self.iteration, batch_s, batch_t, viz))
             pending.append((self.iteration, metrics))
-            self.timer.add_images(batch_s["image"].shape[0] * self.world)  # the global batch
+            self.timer.add_images(batch_s["image"].shape[0] * self.n_data)  # the global batch
             batch_idx += 1
         if prof is not None:  # epoch shorter than the window
             self._stop_profile(prof)
