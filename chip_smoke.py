@@ -22,6 +22,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``prototype_full`` (warmup, then a prototype-phase step) under plain BN
    and under TransNorm, and ``prototype_mt`` (a prototype-phase step, then
    warmup);
+3b. runs the train-throughput benchmark through its entry point
+   (``uda_clr_tpu_torch.bench.main``: the flagship prototype-phase step at
+   full width, 3 windows of 5 steps, then the u8/process and f32/thread
+   host-fed rows of 4 steps), prints its JSON line and checks its keys,
+   ``mfu`` in (0, 1], the card's name and power limit and one K1 launch per
+   prototype-phase step; holds K1's flop formula to FlopCounterMode's count
+   of its plain version at the main path's shape; and runs the serving
+   benchmark (``uda_clr_tpu_torch.bench_eval.main``) at batches 8 and 32,
+   printing its JSON line;
 4. drives the flagship ``prototype_full`` step at full width (mobilenet
    DeepLabv3+ OS16, 512x512, 8 source + 8 target images, T=8 MC samples,
    bfloat16): one warmup step, then five prototype-phase steps, checking
@@ -129,8 +138,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    "device": {...}}``.
 
 ``python3 chip_smoke.py --dp-only`` builds the kernels and runs step 16
-alone, ``--spatial-only`` step 17 alone (with its own one-process steps);
-neither prints a result line.
+alone, ``--spatial-only`` step 17 alone (with its own one-process steps),
+``--bench-only`` step 3b alone; none prints a result line.
 
 It exits non-zero, with no result line, when there is no CUDA card, when
 the port's package is not beside it, or when any phase fails. float32
@@ -201,6 +210,16 @@ DP_RANK_TIMEOUT = 900  # seconds a rank process may take
 # the ('data', 'space') meshes of the spatial phase, (n_data, n_space); the
 # first also runs prototype_mt under 'pallas' and the CLI
 SPATIAL_MESHES = ((1, 2), (2, 2))
+# the bench phase: uda_clr_tpu_torch.bench with 3 windows of 5 steps and 4
+# steps per host-fed row (the benchmark's own defaults are 5 x 10 and 12);
+# its prototype-phase steps: the first call, 2 warm-up, the windows, the
+# flop-counting step, and each host-fed row's untimed step and timed steps
+BENCH_WINDOWS, BENCH_ITERS, BENCH_HOST_FED_STEPS = 3, 5, 4
+BENCH_STEPS = 1 + 2 + BENCH_WINDOWS * BENCH_ITERS + 1 + 2 * (1 + BENCH_HOST_FED_STEPS)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "vs_baseline_range", "step_ms_median",
+              "step_ms_windows", "mfu", "step_tflops", "host_fed", "host_fed_f32",
+              "device_kind", "power_limit_w")
+BENCH_EVAL_BATCHES = "8,32"
 
 
 def fail(msg: str) -> None:
@@ -1279,6 +1298,98 @@ def _images_runs(torch, np, trainer_ports, mh, K3, png, BatchLoader, SyntheticFu
     return total
 
 
+def bench_phase(torch, mh, K3, batch_moments, card: str) -> dict:
+    """The train-throughput benchmark (``uda_clr_tpu_torch.bench``) at full
+    width through its entry point, with the default dropout backend and
+    cuDNN's default TF32 setting, as ``python -m uda_clr_tpu_torch.bench``
+    runs; checks its JSON line (the keys, ``mfu`` in (0, 1], the card's
+    name and power limit) and one K1 launch per prototype-phase step. Then
+    K1's flop formula against FlopCounterMode's count of its plain version
+    at the main path's shape, and the serving benchmark
+    (``uda_clr_tpu_torch.bench_eval``) at batches 8 and 32. Returns the
+    train benchmark's launch counts."""
+    import io
+
+    from uda_clr_tpu_torch import bench, bench_eval
+    from uda_clr_tpu_torch.utils.benchmarking import MASK_HEAD_FLOPS_PER_ROW, count_flops
+
+    def json_line(main, argv) -> dict:
+        """Run a benchmark's ``main(argv)``, echo what it printed and parse
+        its last line, the result."""
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        say(out.getvalue().rstrip())
+        try:
+            return json.loads(out.getvalue().strip().splitlines()[-1])
+        except (IndexError, ValueError) as e:
+            fail(f"{main.__module__}: its last line is not one JSON object ({e})")
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        reset_counts(mh, K3)
+        res = json_line(bench.main, ["--windows", str(BENCH_WINDOWS), "--iters",
+                                     str(BENCH_ITERS), "--host-fed-steps",
+                                     str(BENCH_HOST_FED_STEPS)])
+        launches = counts(mh, K3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    missing = [k for k in BENCH_KEYS if k not in res]
+    if missing:
+        fail(f"bench: the JSON line lacks {missing}")
+    if not (res["mfu"] is not None and 0.0 < res["mfu"] <= 1.0):
+        fail(f"bench: mfu {res['mfu']} is not in (0, 1]")
+    if res["device_kind"] != torch.cuda.get_device_name(0) or res["device_kind"] not in card:
+        fail(f"bench: device_kind {res['device_kind']!r} does not name the card ({card})")
+    if not res["power_limit_w"]:
+        fail(f"bench: power_limit_w {res['power_limit_w']}")
+    if len(res["step_ms_windows"]) != BENCH_WINDOWS:
+        fail(f"bench: {len(res['step_ms_windows'])} windows, want {BENCH_WINDOWS}")
+    for key in ("host_fed", "host_fed_f32"):
+        row = res[key]
+        if not row or not all(row[k] > 0 for k in ("step_ms", "h2d_ms", "load_ms",
+                                                     "device_fraction")):
+            fail(f"bench: host-fed row {key} {row}")
+    expect = {"k1": BENCH_STEPS, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
+    if launches != expect:
+        fail(f"bench: kernel launches {launches}, expected {expect} (one K1 per "
+             f"prototype-phase step)")
+    spread = (res["step_ms_windows"][-1] - res["step_ms_windows"][0]) / res["step_ms_median"]
+    say(f"bench: {res['value']} img/s/card, step {res['step_ms_median']} ms, windows "
+        f"{res['step_ms_windows']} (spread {spread:.4f} of the median), mfu {res['mfu']} of "
+        f"{res['step_tflops']} TFLOP/step, host-fed u8/process {res['host_fed']['step_ms']} "
+        f"ms/step, f32/thread {res['host_fed_f32']['step_ms']} ms/step; launches {launches}")
+
+    # K1's formula against its plain version's count, at the main path's shape
+    g = torch.Generator("cuda").manual_seed(1)
+    x_up, ll, bnd, mean, var = mask_head_inputs(torch, batch_moments, torch.bfloat16, g)
+    rand = lambda *sh: torch.randn(*sh, device="cuda", generator=g)
+    args = (x_up, ll, bnd, mean, var, 1.0 + 0.2 * rand(305), 0.1 * rand(305),
+            0.05 * rand(2, 305, 1, 1), 0.1 * rand(2))
+    _, kernel_flops = count_flops(lambda: mh.fused_mask_head_split(*args, seed=3, rate=0.1))
+    _, plain_flops = count_flops(lambda: mh.mask_head_plain(*args, seed=3, rate=0.1))
+    formula = MASK_HEAD_FLOPS_PER_ROW * math.prod(MAIN_SHAPE)
+    say(f"K1 flops at {MAIN_SHAPE}: formula {formula}, counted through the kernel "
+        f"{kernel_flops}, FlopCounterMode on the plain version {plain_flops}")
+    if not kernel_flops == plain_flops == formula:
+        fail("K1's flop formula disagrees with its plain version's count")
+    del x_up, ll, bnd, mean, var, args
+    torch.cuda.empty_cache()
+
+    ev = json_line(bench_eval.main, ["--batches", BENCH_EVAL_BATCHES])
+    if [r["batch"] for r in ev["rows"]] != [int(b) for b in BENCH_EVAL_BATCHES.split(",")]:
+        fail(f"bench_eval: rows {ev['rows']}")
+    for r in ev["rows"]:
+        if "error" in r or not (r["mfu"] is not None and 0.0 < r["mfu"] <= 1.0):
+            fail(f"bench_eval: row {r}")
+    if ev["device_kind"] != res["device_kind"] or not ev["host_postprocess_ms_per_image"]:
+        fail(f"bench_eval: device_kind {ev['device_kind']}, post-processing "
+             f"{ev['host_postprocess_ms_per_image']}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def eval_phase(torch, np, evaluate, ckpt: str, tmp: str, device: str = "cuda",
                size: int = 512) -> None:
     """``tools/evaluate.py`` on the flagship CLI run's checkpoint over 8
@@ -1982,9 +2093,14 @@ def main() -> None:
         spatial_phase(torch, np, ports, cli.build_config, LOG_HEADERS, card)
         say("chip_smoke --spatial-only: the spatial-mesh phase passed")
         return
+    if "--bench-only" in sys.argv[1:]:
+        bench_phase(torch, mh, K3, batch_moments, card)
+        say("chip_smoke --bench-only: the bench phase passed")
+        return
     mask_numbers = kernel_phase(torch, mh, batch_moments, kernel_seed)
     k3_numbers = dropout_phase(torch, F, K3)
     small_parity_phase(torch, np, ports)
+    benched = bench_phase(torch, mh, K3, batch_moments, card)
 
     # the flagship path: K1 once per prototype-phase step, no K3 under 'xla16'
     flagship, flagship_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
@@ -2086,8 +2202,8 @@ def main() -> None:
     dp, single = dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, flagship_ms, card)
     spatial = spatial_phase(torch, np, ports, cli.build_config, LOG_HEADERS, card, single)
     # each kernel's launches over every path this run drove
-    paths = (flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, *backbone_paths, remat,
-             bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
+    paths = (benched, flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, *backbone_paths,
+             remat, bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
              profiled, dp, spatial)
     launched = {k: sum(p[k] for p in paths) for k in flagship}
     say(f"launches over the paths: {launched}")

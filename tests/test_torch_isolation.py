@@ -8,7 +8,9 @@ library) and ``build_config([])``, builds a TransNorm model and a model on
 each of the other three backbones, evaluates a model over two synthetic
 images with postprocessing and contour overlays, writes a heatmap, a
 validation strip and a scalar image, and runs data parallelism's
-collectives and checks in one process (parallel/).
+collectives and checks in one process (parallel/). The benchmarks
+(``bench``, ``bench_eval``) and their modules (``utils.benchmarking``,
+``utils.hostfeed``, ``utils.devinfo``) are among the modules imported.
 Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
@@ -39,6 +41,9 @@ names = ['uda_clr_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
     uda_clr_tpu_torch.__path__, 'uda_clr_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
+# the benchmarks and the modules they stand on
+for name in ('bench', 'bench_eval', 'utils.benchmarking', 'utils.hostfeed', 'utils.devinfo'):
+    assert 'uda_clr_tpu_torch.' + name in names, name
 import runpy
 runpy.run_path('chip_smoke.py', run_name='chip_smoke')
 from uda_clr_tpu_torch.cli import build_config
@@ -99,7 +104,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.splitlines()[-2:]  # the probe's last two lines
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 58
+    assert int(count) == len(modules) + 1 >= 63
     assert bad == "", f"the port loaded: {bad}"
 
 

@@ -87,7 +87,7 @@ class MethodConfig:
     std_threshold: float = 0.04
     pseudo_threshold: float = 0.75
     rng_impl: str = "unsafe_rbg"  # the JAX package's dropout-bit PRNG (unused by the port)
-    mask_head_impl: str = "auto"  # the JAX package's mask-head switch (the port runs K1)
+    mask_head_impl: str = "auto"  # MC mask head: auto | pallas (K1) | xla (its plain version)
     # disk-bank variant (method='prototype')
     bank_ema: float = 0.001
     bank_loss_weight: float = 0.05

@@ -56,6 +56,9 @@ LIBRARY = cuda_build.KernelLibrary("mask_head.cu", {
 # Launches of each CUDA entry; a run can show the main path went through it.
 LAUNCHES = 0  # K1, fused_mask_head_split
 LAUNCHES_BU = 0  # K2, fused_mask_head
+# Rows through K1 and K2's CUDA launches: their 305 -> 2 products escape
+# FlopCounterMode (ctypes), so utils/benchmarking.count_flops adds them.
+ROWS = 0
 
 
 def philox_bits(m: int, seed: int, device, rows_per_chunk: int = 1 << 15) -> torch.Tensor:
@@ -176,10 +179,11 @@ def fused_mask_head_split(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
     if not x_up.is_cuda:
         return mask_head_plain(x_up, ll, boundary, mean, var, scale, bias, w, w_bias,
                                seed, rate, eps)
-    global LAUNCHES
+    global LAUNCHES, ROWS
     _check_cuda_inputs(((x_up, C_X, "x_up"), (ll, C_L, "ll"), (boundary, 1, "boundary")))
     out = _launch((x_up, ll, boundary), (mean, var, scale, bias, w, w_bias), seed, rate, eps)
     LAUNCHES += 1
+    ROWS += out.numel() // 2
     return out
 
 
@@ -191,8 +195,9 @@ def fused_mask_head(x_bu, boundary, mean, var, scale, bias, w, w_bias,
     if not x_bu.is_cuda:
         return mask_head_bu_plain(x_bu, boundary, mean, var, scale, bias, w, w_bias,
                                   seed, rate, eps)
-    global LAUNCHES_BU
+    global LAUNCHES_BU, ROWS
     _check_cuda_inputs(((x_bu, C_X + C_L, "x_bu"), (boundary, 1, "boundary")))
     out = _launch((x_bu, boundary), (mean, var, scale, bias, w, w_bias), seed, rate, eps)
     LAUNCHES_BU += 1
+    ROWS += out.numel() // 2
     return out

@@ -73,7 +73,7 @@ from uda_clr_tpu_torch.models.norm import (
 from uda_clr_tpu_torch.ops import losses as L
 from uda_clr_tpu_torch.ops import prototypes as P
 from uda_clr_tpu_torch.ops.augment import augment_draws, strong_augment
-from uda_clr_tpu_torch.ops.mask_head import fused_mask_head_split
+from uda_clr_tpu_torch.ops.mask_head import fused_mask_head_split, mask_head_plain
 from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
 from uda_clr_tpu_torch.parallel import distributed as dist_lib
@@ -84,6 +84,7 @@ from uda_clr_tpu_torch.train import optim as optim_lib
 from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
 
 _CL = torch.channels_last
+MASK_HEAD_IMPLS = ("auto", "pallas", "xla")  # cfg.method.mask_head_impl
 
 # sub-streams of a step's seed; K1 takes the step seed itself; the slow MC
 # pass's lane i draws from sub-stream _MC_LANES + i; bcdm's head forward k
@@ -114,7 +115,8 @@ def _conv(x, weight, padding: int, bias=None):
 
 @torch.no_grad()
 def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
-              generator: torch.Generator | None, seed: int, tn_degenerate: bool = False):
+              generator: torch.Generator | None, seed: int, tn_degenerate: bool = False,
+              mask_head_impl: str = "auto"):
     """T dropout-sampled mask-head passes from the deterministic prefix
     (NCHW ``feat_predrop`` [B,256,h',w'] and ``ll`` [B,48,h,w]); returns
     [T, B, H, W, 2] mask logits. Writes no running stats: BN uses batch
@@ -122,7 +124,9 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
     follow ``_mc_drop`` (never K3); the mask head is K1 at rate 0.1 from
     ``seed``. ``tn_degenerate``: TransNorm's identical-halves mode (the
     norm's ``domains=0``): the three norm sites' scale and bias times 2,
-    the coefficients K1 receives included."""
+    the coefficients K1 receives included. ``mask_head_impl`` (the config's
+    switch): ``'xla'`` runs K1's plain version on any device, the JAX
+    package's ``'xla'`` A/B; ``'auto'`` and ``'pallas'`` run K1."""
     H, W = hw
     s2 = 2.0 if tn_degenerate else None
     affine = lambda bn: (bn.weight, bn.bias) if s2 is None else (bn.weight * s2, bn.bias * s2)
@@ -150,7 +154,10 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
     # mask head: the virtual 305-concat's moments are the per-part moments
     moments = batch_moments_parts((x_up, ll_rep, boundary), (0, 2, 3))
     mask_bn, mask_out = dec.last_conv[0], dec.last_conv[3]
-    x1 = fused_mask_head_split(
+    if mask_head_impl not in MASK_HEAD_IMPLS:
+        raise ValueError(f"mask_head_impl {mask_head_impl!r}; one of {MASK_HEAD_IMPLS}")
+    head = mask_head_plain if mask_head_impl == "xla" else fused_mask_head_split
+    x1 = head(
         nhwc(x_up), nhwc(ll_rep), nhwc(boundary),
         torch.cat([m for m, _ in moments]), torch.cat([v for _, v in moments]),
         *affine(mask_bn), mask_out.weight, mask_out.bias,
@@ -162,7 +169,8 @@ def mc_suffix(gen: DeepLab, feat_predrop, ll, hw, b: int, t_samples: int,
 
 @torch.no_grad()
 def mc_dropout_forward(gen: DeepLab, image_t: torch.Tensor, t_samples: int, fast: bool,
-                       generator: torch.Generator | None, seed: int) -> torch.Tensor:
+                       generator: torch.Generator | None, seed: int,
+                       mask_head_impl: str = "auto") -> torch.Tensor:
     """T MC-dropout mask-logit samples of the NHWC target batch, [T, B, H,
     W, 2], without gradients or running-stat writes (steps.py:234-301).
 
@@ -181,7 +189,7 @@ def mc_dropout_forward(gen: DeepLab, image_t: torch.Tensor, t_samples: int, fast
             high, low = gen.features(nchw(image_t), True, dm)
             fp, ll = gen.heads_prefix(high, low, True, dm)
             return mc_suffix(gen, fp, ll, hw, b, t_samples, generator, seed,
-                             tn_degenerate=gen.norm == "tn")
+                             tn_degenerate=gen.norm == "tn", mask_head_impl=mask_head_impl)
         x_rep = torch.cat([image_t, image_t], dim=0)
         lanes = [gen(x_rep, True, 1, layers_lib.DropoutStream(
             generator, stream_seed(seed, _MC_LANES + i))).mask_logits
@@ -405,7 +413,7 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
         mc = None
         if use_mc and not mc_inline:
             mc = mc_dropout_forward(gen, image_t, mcfg.mc_samples, mcfg.mc_fast, g,
-                                    step_seed).float()
+                                    step_seed, mcfg.mask_head_impl).float()
 
         # ---- one forward of the batch ----
         high, low = gen.features(x_all, True, domains)
@@ -414,7 +422,8 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                                 layers_lib.DropoutStream(g, stream_seed(step_seed, _MAIN_FORWARD)))
         if mc_inline:
             mc = mc_suffix(gen, fp_all[b:].detach(), ll_all[b:].detach(), hw, b,
-                           mcfg.mc_samples, g, step_seed).float()
+                           mcfg.mc_samples, g, step_seed,
+                           mask_head_impl=mcfg.mask_head_impl).float()
         out_s, out_t = _split(outs, b) if use_target else (outs, None)
 
         # ---- generator loss ----
