@@ -31,6 +31,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    of its plain version at the main path's shape; and runs the serving
    benchmark (``uda_clr_tpu_torch.bench_eval.main``) at batches 8 and 32,
    printing its JSON line;
+3c. runs the measurement tools through their entry points at full width,
+   each printing its JSON line: the per-op roofline of the flagship step
+   (``roofline_closure``, 2 profiled steps; its closure must hold: the ops'
+   flops equal to ``count_flops``, their device ms within 1% of the
+   trace's, no share above 1.05), bn against tn in one process
+   (``bench_norm_ab``, 3 alternating windows of 3 steps each; tn/bn in
+   [1.0, 1.6]), the batch scaling at B 8, 16 and 32 (2 windows of 3; the B
+   8 row must run), the host-fed step against 1, 2 and all cores' thread
+   workers (``bench_e2e``, 3 steps a row), the fast and slow MC passes over
+   12 steps at 256^2 (``ab_mc_fast``; finite losses), the loader's img/s
+   with the native library on and off (``bench_pipeline``) and thread
+   against process workers (``bench_loader_backend``); one K1 launch per
+   prototype-phase step of every tool that runs the flagship's fast MC
+   pass, none elsewhere;
 4. drives the flagship ``prototype_full`` step at full width (mobilenet
    DeepLabv3+ OS16, 512x512, 8 source + 8 target images, T=8 MC samples,
    bfloat16): one warmup step, then five prototype-phase steps, checking
@@ -112,7 +126,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and dropout off, 8 + 8 images, T=8) in one process and in two ranks of
    4 + 4, under ``bn`` and ``tn``, held to each other (the tight losses,
    running stats, parameters after the step, banks; the ranks bit for bit
-   alike); the flagship's bf16 step timed in two ranks beside the
+   alike), and the float32 ``baseline`` step under ``tn`` (its source-only
+   batch split by TransNorm over the global batch) held the same way; the
+   flagship's bf16 step timed in two ranks beside the
    one-process step; ``prototype_mt`` under ``'pallas'`` for two steps in
    two ranks (K1 and K3 launches per rank, the ranks' K3 masks differ);
    then the CLI in two ranks, one ``python -m uda_clr_tpu_torch.cli
@@ -139,7 +155,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 ``python3 chip_smoke.py --dp-only`` builds the kernels and runs step 16
 alone, ``--spatial-only`` step 17 alone (with its own one-process steps),
-``--bench-only`` step 3b alone; none prints a result line.
+``--bench-only`` step 3b alone, ``--tools-only`` step 3c alone; none prints
+a result line.
 
 It exits non-zero, with no result line, when there is no CUDA card, when
 the port's package is not beside it, or when any phase fails. float32
@@ -220,6 +237,8 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "vs_baseline_range", "st
               "step_ms_windows", "mfu", "step_tflops", "host_fed", "host_fed_f32",
               "device_kind", "power_limit_w")
 BENCH_EVAL_BATCHES = "8,32"
+# the tools phase: the bounds on bench_norm_ab's tn/bn (PR 5 measured 1.132)
+TN_OVER_BN = (1.0, 1.6)
 
 
 def fail(msg: str) -> None:
@@ -1298,6 +1317,23 @@ def _images_runs(torch, np, trainer_ports, mh, K3, png, BatchLoader, SyntheticFu
     return total
 
 
+def json_line(main, argv) -> dict:
+    """Run a benchmark's or tool's ``main(argv)``, echo what it printed and
+    parse its last line, the result."""
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            main(argv)
+    finally:  # a tool that raises has printed why
+        say(out.getvalue().rstrip())
+    try:
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+    except (IndexError, ValueError) as e:
+        fail(f"{main.__module__}: its last line is not one JSON object ({e})")
+
+
 def bench_phase(torch, mh, K3, batch_moments, card: str) -> dict:
     """The train-throughput benchmark (``uda_clr_tpu_torch.bench``) at full
     width through its entry point, with the default dropout backend and
@@ -1308,22 +1344,8 @@ def bench_phase(torch, mh, K3, batch_moments, card: str) -> dict:
     at the main path's shape, and the serving benchmark
     (``uda_clr_tpu_torch.bench_eval``) at batches 8 and 32. Returns the
     train benchmark's launch counts."""
-    import io
-
     from uda_clr_tpu_torch import bench, bench_eval
     from uda_clr_tpu_torch.utils.benchmarking import MASK_HEAD_FLOPS_PER_ROW, count_flops
-
-    def json_line(main, argv) -> dict:
-        """Run a benchmark's ``main(argv)``, echo what it printed and parse
-        its last line, the result."""
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            main(argv)
-        say(out.getvalue().rstrip())
-        try:
-            return json.loads(out.getvalue().strip().splitlines()[-1])
-        except (IndexError, ValueError) as e:
-            fail(f"{main.__module__}: its last line is not one JSON object ({e})")
 
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
@@ -1388,6 +1410,92 @@ def bench_phase(torch, mh, K3, batch_moments, card: str) -> dict:
              f"{ev['host_postprocess_ms_per_image']}")
     torch.cuda.empty_cache()
     return launches
+
+
+def tools_phase(torch, mh, K3, card: str) -> dict:
+    """The measurement tools (module docstring, step 3c) through their
+    entry points at full width, with fewer windows and steps than their
+    defaults, the default dropout backend and cuDNN's default TF32 setting;
+    checks the roofline's closure, one K1 launch per prototype-phase step
+    of every tool that runs the flagship (none on the plain mask head and
+    the slow MC pass), finite losses in the three MC variants, a B 8 row
+    that ran and a tn/bn ratio in TN_OVER_BN. Returns the launch counts."""
+    import importlib
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    cores = os.cpu_count() or 1
+    argv = {
+        "roofline_closure": ["--steps", "2", "--out", os.path.join(tmp, "roofline.csv")],
+        "bench_norm_ab": ["--windows", "3", "--iters", "3"],
+        "bench_batch_scaling": ["--windows", "2", "--iters", "3"],
+        "bench_e2e": ["--steps", "3", "--workers", f"1,2,{cores}", "--n-data", "16"],
+        "ab_mc_fast": ["--steps", "12", "--out", os.path.join(tmp, "ab_mc_fast.csv")],
+        "bench_pipeline": ["--n", "24"],
+        "bench_loader_backend": ["--batches", "3", "--out", os.path.join(tmp, "loader.csv")],
+    }
+    res, launches, seconds = {}, {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, args in argv.items():
+            module = importlib.import_module(f"uda_clr_tpu_torch.{name}")
+            reset_counts(mh, K3)
+            t0 = time.perf_counter()
+            res[name] = json_line(module.main, args)
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = counts(mh, K3)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, r in res.items():
+        if r.get("device_kind") != torch.cuda.get_device_name(0) or r["device_kind"] not in card \
+                or not r.get("power_limit_w"):
+            fail(f"{name}: device_kind {r.get('device_kind')!r}, power_limit_w "
+                 f"{r.get('power_limit_w')} do not name the card ({card})")
+        if any(launches[name][k] for k in ("k2", "k3_fwd", "k3_bwd")):
+            fail(f"{name}: launches {launches[name]} under 'xla16'")
+    roof = res["roofline_closure"]
+    if roof["checks"] != {**roof["checks"], "flops_conserved": True, "ms_conserved": True,
+                          "shares_bounded": True}:
+        fail(f"roofline_closure: the closure fails: {roof['checks']}")
+    ab = res["ab_mc_fast"]["variants"]
+    want_k1 = {
+        "roofline_closure": roof["proto_steps"],
+        "bench_norm_ab": sum(res["bench_norm_ab"]["proto_steps"].values()),
+        "bench_batch_scaling": res["bench_batch_scaling"]["proto_steps"],
+        "bench_e2e": res["bench_e2e"]["proto_steps"],
+        "ab_mc_fast": res["ab_mc_fast"]["steps"],  # the fast_fused variant's steps alone
+        "bench_pipeline": 0,
+        "bench_loader_backend": 0,
+    }
+    for name, k1 in want_k1.items():
+        if launches[name]["k1"] != k1:
+            fail(f"{name}: K1 launched {launches[name]['k1']} times, expected {k1} (one per "
+                 f"prototype-phase step of the flagship)")
+    if [ab[v]["k1_launches"] for v in ("fast_fused", "fast_plain", "slow")] != \
+            [res["ab_mc_fast"]["steps"], 0, 0]:
+        fail(f"ab_mc_fast: K1 launches per variant {[v['k1_launches'] for v in ab.values()]}")
+    if not all(v["finite"] for v in ab.values()):
+        fail(f"ab_mc_fast: a variant's losses are not finite: {ab}")
+    rows = res["bench_batch_scaling"]["rows"]
+    if rows[0].get("batch") != 8 or "error" in rows[0] or not 0.0 < rows[0]["mfu"] <= 1.0:
+        fail(f"bench_batch_scaling: the B 8 row {rows[0]}")
+    ratio = res["bench_norm_ab"]["tn_over_bn"]
+    if not TN_OVER_BN[0] <= ratio <= TN_OVER_BN[1]:
+        fail(f"bench_norm_ab: tn/bn {ratio} outside {TN_OVER_BN}")
+    e2e = res["bench_e2e"]["host_fed"]
+    if not e2e or not all(r["step_ms"] > 0 and r["device_fraction"] > 0 for r in e2e):
+        fail(f"bench_e2e: rows {e2e}")
+    say(f"tools ({card}): roofline {roof['device_ms_per_step']:.2f} device ms/step, "
+        f"{roof['attributed_ms_per_step']:.2f} attributed, largest share "
+        f"{roof['checks']['max_share']:.3f}; tn/bn {ratio}; batch scaling "
+        + ", ".join(f"B{r['batch']} {r.get('img_per_sec_card', r.get('error'))}" for r in rows)
+        + " img/s; host-fed " + ", ".join(f"{r['workers']} workers {r['step_ms']} ms"
+                                          for r in e2e)
+        + f"; seconds per tool {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    return {k: sum(launches[name][k] for name in launches) for k in ("k1", "k2", "k3_fwd",
+                                                                     "k3_bwd")}
 
 
 def eval_phase(torch, np, evaluate, ckpt: str, tmp: str, device: str = "cuda",
@@ -1530,10 +1638,13 @@ def dp_batch(torch, np, rank: int, world: int, device: str = "cuda") -> dict:
     return {k: torch.from_numpy(v[rows, stripe].copy()).to(device) for k, v in arrs.items()}
 
 
-def dp_equivalence_step(torch, np, ports, norm: str, rank: int = 0, world: int = 1) -> dict:
-    """One ``prototype_full`` prototype-phase step at full width in float32,
-    dropout off, on this rank's rows; its metrics, the generator's running
-    stats and parameters after the step and the banks, on the CPU."""
+def dp_equivalence_step(torch, np, ports, norm: str, rank: int = 0, world: int = 1,
+                        method: str = "prototype_full") -> dict:
+    """One ``method`` step at full width in float32, dropout off, on this
+    rank's rows (``prototype_full``: a prototype-phase step; ``baseline``:
+    the source alone, a one-domain batch); its metrics, the generator's
+    running stats and parameters after the step and the banks, on the
+    CPU."""
     Config, create_train_state, make_train_step, layers = ports
     cfg = Config()
     cfg.method.mc_samples = 8
@@ -1541,19 +1652,20 @@ def dp_equivalence_step(torch, np, ports, norm: str, rank: int = 0, world: int =
     from uda_clr_tpu_torch.ops import dropout as K3
     from uda_clr_tpu_torch.ops import mask_head as mh
 
-    where = f"data-parallel step ({norm}, rank {rank} of {world})"
+    where = f"data-parallel {method} step ({norm}, rank {rank} of {world})"
     layers.set_dropout_impl("off")
     try:
-        state = create_train_state(cfg, seed=0, device="cuda")
+        state = create_train_state(cfg, seed=0, device="cuda", method=method)
         reset_counts(mh, K3)
         t0 = time.perf_counter()
-        state, m = make_train_step(cfg, "prototype_full", proto_phase=True)(
+        state, m = make_train_step(cfg, method, proto_phase=True)(
             state, dp_batch(torch, np, rank, world), DP_LR, 2.5e-5)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
     finally:
         layers.set_dropout_impl("xla16")
-    check_counts(mh, K3, {"k1": 1, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}, where)
+    check_counts(mh, K3, {"k1": int(method == "prototype_full"), "k2": 0, "k3_fwd": 0,
+                          "k3_bwd": 0}, where)
     take_viz(m, where)
     check_metrics(m, where)
     cpu = lambda tree: {k: v.detach().cpu().clone() for k, v in tree.items()}
@@ -1705,6 +1817,9 @@ def dp_rank(spec: dict) -> None:
         spatial.init_mesh((world // n_space, n_space))
         out = {"equivalence": {norm: dp_equivalence_step(torch, np, ports, norm, rank, world)
                                for norm in ("bn", "tn")}}
+        if spec.get("baseline_tn"):
+            out["equivalence"]["baseline-tn"] = dp_equivalence_step(
+                torch, np, ports, "tn", rank, world, "baseline")
         out["flagship"] = dp_flagship_timing(torch, np, ports, mh, K3, rank, world)
         if spec.get("pallas", True):
             out["pallas"] = dp_pallas_steps(torch, np, ports, mh, K3, rank, world)
@@ -1753,9 +1868,11 @@ def run_ranks(commands: list, tmp: str, name: str) -> list:
     return outputs
 
 
-def dp_compare(single: dict, ranks: list, norm: str, what: str = "data-parallel") -> dict:
+def dp_compare(single: dict, ranks: list, norm: str, what: str = "data-parallel",
+               tight=DP_TIGHT, loose=DP_LOOSE) -> dict:
     """The ranks' equivalence step against the one-process step: every gap,
-    failing on one past its tolerance; the ranks must agree bit for bit."""
+    failing on one past its tolerance; the ranks must agree bit for bit.
+    ``tight`` and ``loose``: the step's metrics by class."""
     import torch
 
     where = f"{what} equivalence ({norm})"
@@ -1766,11 +1883,11 @@ def dp_compare(single: dict, ranks: list, norm: str, what: str = "data-parallel"
         for part in ("params", "buffers", "banks"):
             if any(not torch.equal(res[part][k], r0[part][k]) for k in r0[part]):
                 fail(f"{where}: rank {r}'s {part} differ from rank 0's")
-    if set(single["metrics"]) != set(DP_TIGHT + DP_LOOSE) or set(r0["metrics"]) != set(
+    if set(single["metrics"]) != set(tight + loose) or set(r0["metrics"]) != set(
             single["metrics"]):
         fail(f"{where}: metrics {sorted(r0['metrics'])} vs {sorted(single['metrics'])}")
     gaps = {}
-    for keys, tol in ((DP_TIGHT, DP_TIGHT_ATOL), (DP_LOOSE, DP_LOOSE_ATOL)):
+    for keys, tol in ((tight, DP_TIGHT_ATOL), (loose, DP_LOOSE_ATOL)):
         for k in keys:
             gaps[k] = abs(single["metrics"][k] - r0["metrics"][k])
             say(f"{where} {k}: one process {single['metrics'][k]:.8g}, {len(ranks)} ranks "
@@ -1896,10 +2013,11 @@ def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         single = {norm: dp_equivalence_step(torch, np, ports, norm) for norm in ("bn", "tn")}
+        single["baseline-tn"] = dp_equivalence_step(torch, np, ports, "tn", method="baseline")
         init = f"file://{os.path.join(tmp, 'dist_init')}"
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
         commands = [[sys.executable, os.path.abspath(__file__), "--dp-rank", json.dumps(
-            {"rank": r, "world": DP_WORLD, "init": init, "out": outs[r]})]
+            {"rank": r, "world": DP_WORLD, "init": init, "out": outs[r], "baseline_tn": True})]
             for r in range(DP_WORLD)]
         t0 = time.perf_counter()
         run_ranks(commands, tmp, "steps")
@@ -1907,6 +2025,10 @@ def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: 
         ranks = [torch.load(o, weights_only=False) for o in outs]
         for norm in ("bn", "tn"):
             dp_compare(single[norm], [r["equivalence"][norm] for r in ranks], norm)
+        # TransNorm splits the baseline's source-only batch over the global
+        # batch, whose first half each rank's rows lie in wholly or not at all
+        dp_compare(single["baseline-tn"], [r["equivalence"]["baseline-tn"] for r in ranks],
+                   "tn", what="data-parallel baseline", tight=("loss_seg", "loss_all"), loose=())
         digests = [r["pallas"]["mask_digests"] for r in ranks]
         for i in range(2):
             if digests[0][i] == digests[1][i]:
@@ -1916,7 +2038,8 @@ def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: 
             f"between the ranks ({[d[:12] for d in digests]}), keep share "
             f"{ranks[0]['pallas']['keep_share']:.4f}")
         trainer = dp_trainer_phase(build_config, headers, tmp)
-        runs = [*single.values()] + [r["equivalence"][n] for r in ranks for n in ("bn", "tn")] \
+        runs = [*single.values()] + [r["equivalence"][n] for r in ranks
+                                     for n in ("bn", "tn", "baseline-tn")] \
             + [r[part] for r in ranks for part in ("flagship", "pallas")]
         launches = {k: sum(run["launches"][k] for run in runs) + trainer["launches"][k]
                     for k in ("k1", "k2", "k3_fwd", "k3_bwd")}
@@ -2097,10 +2220,15 @@ def main() -> None:
         bench_phase(torch, mh, K3, batch_moments, card)
         say("chip_smoke --bench-only: the bench phase passed")
         return
+    if "--tools-only" in sys.argv[1:]:
+        tools_phase(torch, mh, K3, card)
+        say("chip_smoke --tools-only: the tools phase passed")
+        return
     mask_numbers = kernel_phase(torch, mh, batch_moments, kernel_seed)
     k3_numbers = dropout_phase(torch, F, K3)
     small_parity_phase(torch, np, ports)
     benched = bench_phase(torch, mh, K3, batch_moments, card)
+    tooled = tools_phase(torch, mh, K3, card)
 
     # the flagship path: K1 once per prototype-phase step, no K3 under 'xla16'
     flagship, flagship_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
@@ -2202,8 +2330,8 @@ def main() -> None:
     dp, single = dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, flagship_ms, card)
     spatial = spatial_phase(torch, np, ports, cli.build_config, LOG_HEADERS, card, single)
     # each kernel's launches over every path this run drove
-    paths = (benched, flagship, mt, flagship_tn, bank_tn, slow, wotn_counts, *backbone_paths,
-             remat, bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
+    paths = (benched, tooled, flagship, mt, flagship_tn, bank_tn, slow, wotn_counts,
+             *backbone_paths, remat, bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
              profiled, dp, spatial)
     launched = {k: sum(p[k] for p in paths) for k in flagship}
     say(f"launches over the paths: {launched}")

@@ -37,6 +37,7 @@ from uda_clr_tpu_torch.models.deeplab import DeepLab
 from uda_clr_tpu_torch.train.state import create_train_state
 from uda_clr_tpu_torch.train.steps import make_train_step
 from uda_clr_tpu_torch.utils.benchmarking import count_flops
+from uda_clr_tpu_torch.utils.opcount import OpCounter
 
 pytestmark = pytest.mark.usefixtures("two_threads")
 
@@ -185,10 +186,11 @@ def test_eval_forward_flops_match_jax():
     assert rel(got, want["conv"]) <= EVAL_RTOL, (got, want)
 
 
-def test_flagship_step_flops_match_jax():
-    """One prototype-phase ``prototype_full`` step (T=4, float32) on both
-    sides, from the same state: the convolutions and products both
-    frameworks' steps run, gradients included."""
+@pytest.fixture(scope="module")
+def flagship_step():
+    """One prototype-phase ``prototype_full`` step (T=4, float32) from the
+    same state on both sides: the JAX step's count from its jaxpr (traced
+    once for the file), the port's state, batch and step."""
     jcfg = JaxConfig()
     jcfg.model.compute_dtype = "float32"
     jcfg.method.mc_samples = T
@@ -201,11 +203,39 @@ def test_flagship_step_flops_match_jax():
     jstep = jax_make_train_step(model, jcfg, "prototype_full", proto_phase=True)
     want = jaxpr_flops(jax.make_jaxpr(lambda s, b: jstep(s, b, LR_GEN, LR_DIS, EPOCH))(
         jstate, {k: jnp.asarray(v) for k, v in batch.items()}))
-    state = create_train_state(cfg, seed=0, device="cpu", method="prototype_full",
-                               **train_state_dicts(jstate))
     step = make_train_step(cfg, "prototype_full", proto_phase=True)
-    (_, metrics), got = count_flops(lambda: step(
-        state, {k: torch.from_numpy(v) for k, v in batch.items()}, LR_GEN, LR_DIS, EPOCH))
+
+    def port_step():
+        state = create_train_state(cfg, seed=0, device="cpu", method="prototype_full",
+                                   **train_state_dicts(jstate))
+        return step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, LR_GEN, LR_DIS,
+                    EPOCH)
+
+    return want, port_step
+
+
+def test_flagship_step_flops_match_jax(flagship_step):
+    """The convolutions and products both frameworks' steps run, gradients
+    included."""
+    want, port_step = flagship_step
+    (_, metrics), got = count_flops(port_step)
     assert np.isfinite(float(metrics["loss_all"]))
     assert want["resize"] > 0
     assert rel(got, want["conv"] + want["dot"]) <= STEP_RTOL, (got, want)
+
+
+def test_flagship_step_per_op_flops_match_jax(flagship_step):
+    """The per-op roofline's total (utils/opcount.OpCounter, the ops' flops
+    summed, as roofline_closure.py sums them) against the JAX step's count,
+    and equal to count_flops of the same call."""
+    want, port_step = flagship_step
+    counter = OpCounter()
+
+    def run():
+        with counter:
+            return port_step()
+
+    _, got = count_flops(run)
+    total = counter.total("flops")
+    assert total == got
+    assert rel(total, want["conv"] + want["dot"]) <= STEP_RTOL, (total, want)

@@ -10,7 +10,10 @@ images with postprocessing and contour overlays, writes a heatmap, a
 validation strip and a scalar image, and runs data parallelism's
 collectives and checks in one process (parallel/). The benchmarks
 (``bench``, ``bench_eval``) and their modules (``utils.benchmarking``,
-``utils.hostfeed``, ``utils.devinfo``) are among the modules imported.
+``utils.hostfeed``, ``utils.devinfo``), and the measurement tools
+(``roofline_closure`` with ``utils.opcount``, ``bench_norm_ab``,
+``bench_batch_scaling``, ``bench_e2e``, ``ab_mc_fast``, ``bench_pipeline``,
+``bench_loader_backend``) are among the modules imported.
 Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
@@ -42,7 +45,9 @@ names = ['uda_clr_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 # the benchmarks and the modules they stand on
-for name in ('bench', 'bench_eval', 'utils.benchmarking', 'utils.hostfeed', 'utils.devinfo'):
+for name in ('bench', 'bench_eval', 'utils.benchmarking', 'utils.hostfeed', 'utils.devinfo',
+             'roofline_closure', 'utils.opcount', 'bench_norm_ab', 'bench_batch_scaling',
+             'bench_e2e', 'ab_mc_fast', 'bench_pipeline', 'bench_loader_backend'):
     assert 'uda_clr_tpu_torch.' + name in names, name
 import runpy
 runpy.run_path('chip_smoke.py', run_name='chip_smoke')
@@ -104,7 +109,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.splitlines()[-2:]  # the probe's last two lines
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 63
+    assert int(count) == len(modules) + 1 >= 71
     assert bad == "", f"the port loaded: {bad}"
 
 

@@ -6,7 +6,10 @@ Cases: the flagship ``prototype_full`` under ``bn`` and ``tn``, and the
 method surface ``bcdm``, ``mean_teacher`` (with the teacher's input noise
 on, now drawn for the global batch), ``posal``, ``prototype`` (the disk
 bank, with the distance-weighted pseudo-labels) and ``prototype_mt`` with
-``use_trg_cons``. Each holds the metrics by JAX's tight/loose/post
+``use_trg_cons``; and under ``tn`` the one-domain batches, whose TransNorm
+halves are those of the global batch: ``baseline`` (the source alone),
+``bcdm`` (every forward) and ``prototype_mt`` (the augmented target
+forward, its ``loss_aug`` tight). Each holds the metrics by JAX's tight/loose/post
 classification, the averaged gradients, the running statistics, the
 parameters after the step and the banks (tests/torch_dp_ranks.py has the
 tolerances with their measured values), and requires the two ranks to hold

@@ -20,10 +20,11 @@ ranks spawned as tests/test_torch_parallel*.py spawn them
 * ``check_mesh``'s and ``check_stripes``' errors;
 * the train step on the ``(1, 2)``, ``(2, 2)`` and ``(1, 4)`` meshes against
   one process on the same global batch (8 + 8 images at 64^2, float32,
-  dropout off), for every case of ``torch_dp_ranks.CASES`` (the flagship
+  dropout off), for the cases of ``torch_dp_ranks.CASES`` (the flagship
   under bn and tn, bcdm, mean_teacher with its input noise, posal, the disk
-  bank, prototype_mt), held as tests/test_torch_parallel_steps.py holds the
-  data-parallel ranks, with the metrics' tolerances of
+  bank, prototype_mt, and under tn the baseline, whose source-only batch
+  TransNorm splits over the global batch, and prototype_mt), held as
+  tests/test_torch_parallel_steps.py holds the data-parallel ranks, with the metrics' tolerances of
   tests/test_mesh_spatial.py (tight 2e-5 there, 1e-5 here; loose 2e-3) and
   its absolute bound on the running stats (2e-3).
 
@@ -63,6 +64,7 @@ PURE_RTOL, NORM_RTOL, PRIM_STATS_RTOL = 1e-12, 4e-6, 2e-6
 # 0.063), parameters' median 0 lr, banks <= 2.4e-5, discriminator <= 8.4e-8
 STEP_METRIC_ATOL = {"tight": 1e-5, "loose": 2e-3, "post": 2e-3}
 STEP_STATS_ATOL = 2e-3
+STEP_CASES = dp.SPATIAL_CASES
 
 
 def _moments_by_halves(xs, dims):
@@ -96,7 +98,7 @@ def spawned(tmp_path_factory):
         torch.set_num_threads(min(2, threads))
         try:
             here["whole"] = dp.run_primitives()
-            here["one"] = {name: dp.run_case(name) for name in dp.CASES}
+            here["one"] = {name: dp.run_case(name) for name in STEP_CASES}
             with mock.patch.object(norm, "_moments", _moments_by_halves):
                 here["backbones"] = dp.run_backbones()
         finally:
@@ -106,7 +108,7 @@ def spawned(tmp_path_factory):
         if not names:
             return single()
         name, (world, n_space) = names[0], MESHES[names[0]]
-        args = (n_space, list(dp.CASES)) + ((str(cli_tmp),) if name == "1x2" else ())
+        args = (n_space, STEP_CASES) + ((str(cli_tmp),) if name == "1x2" else ())
         got[name] = dp.spawn(dp.mesh_units, tmp_path_factory.mktemp(f"mesh{name}"), args,
                              world=world, meanwhile=lambda: chain(names[1:]))
 
@@ -238,10 +240,10 @@ def steps(spawned):
     """{case: (one-process result, {mesh: its ranks' results})}."""
     here, got, _ = spawned
     return {case: (here["one"][case], {m: [r["cases"][case] for r in got[m]] for m in MESHES})
-            for case in dp.CASES}
+            for case in STEP_CASES}
 
 
-@pytest.mark.parametrize("case", list(dp.CASES))
+@pytest.mark.parametrize("case", STEP_CASES)
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_mesh_step_equals_one_process(mesh_name, case, steps):
     one, meshes = steps[case]

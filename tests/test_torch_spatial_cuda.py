@@ -1,6 +1,7 @@
 """The ``('data', 'space')`` mesh on the card: two gloo ranks on the ``(1,
 2)`` mesh sharing one card, each with the top or bottom half of every image,
-against one process on it, the cases of tests/test_torch_spatial.py (64^2,
+against one process on it, the cases of tests/test_torch_spatial.py
+(``torch_dp_ranks.SPATIAL_CASES``; 64^2,
 8 + 8 images, float32 with TF32 off, dropout off) with its tolerances; and,
 on a machine with two cards or more, the same with two nccl ranks, one per
 card, whose halo rows cross card to card (skipped with one card).
@@ -31,14 +32,14 @@ def one():
         pytest.skip("needs a CUDA card")
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     try:
-        return {name: dp.run_case(name, device="cuda") for name in dp.CASES}
+        return {name: dp.run_case(name, device="cuda") for name in dp.SPATIAL_CASES}
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _ranks(one, tmp, backend):
-    ranks = dp.spawn(dp.run_cases, tmp, (list(dp.CASES), "cuda", 2), backend=backend)
-    return {name: (one[name], [r[name] for r in ranks]) for name in dp.CASES}
+    ranks = dp.spawn(dp.run_cases, tmp, (dp.SPATIAL_CASES, "cuda", 2), backend=backend)
+    return {name: (one[name], [r[name] for r in ranks]) for name in dp.SPATIAL_CASES}
 
 
 @pytest.fixture(scope="module")
@@ -62,11 +63,11 @@ def _check(name, results):
     assert not bad, f"{name}: " + "; ".join(bad)
 
 
-@pytest.mark.parametrize("name", list(dp.CASES))
+@pytest.mark.parametrize("name", dp.SPATIAL_CASES)
 def test_spatial_ranks_on_the_card_equal_one_process(name, results):
     _check(name, results)
 
 
-@pytest.mark.parametrize("name", list(dp.CASES))
+@pytest.mark.parametrize("name", dp.SPATIAL_CASES)
 def test_nccl_ranks_on_two_cards_equal_one_process(name, nccl_results):
     _check(name, nccl_results)

@@ -46,7 +46,17 @@ CASES = {
     "posal": ("posal", "bn", {}, False),
     "prototype": ("prototype", "bn", {"use_weight_rectify": True}, True),
     "prototype_mt": ("prototype_mt", "bn", {"use_trg_cons": True}, True),
+    "baseline-tn": ("baseline", "tn", {}, False),
+    "bcdm-tn": ("bcdm", "tn", {}, False),
+    "prototype_mt-tn": ("prototype_mt", "tn", {"use_trg_cons": True}, True),
 }
+# the cases of the ('data', 'space') mesh's files (tests/test_torch_spatial.py
+# and its card file): CASES but bcdm under tn, whose running stats after
+# five updates sit on a float32 floor above those files' absolute bound on
+# them (2e-3): one process against itself on the same batch with the rows
+# reordered inside each half gives 7.2e-3. test_torch_parallel_steps.py
+# holds it
+SPATIAL_CASES = [case for case in CASES if case != "bcdm-tn"]
 
 
 def global_batch(seed: int = 7, b: int = B, size: int = SIZE) -> dict:
@@ -213,6 +223,11 @@ CLASSES = {
                   {"loss_all", "loss_cup", "loss_disc", "loss_bu"}, set()),
     "prototype_mt": ({"loss_seg", "loss_adv", "loss_D", "loss_D2", "loss_src_reg"},
                      {"loss_all", "loss_intra", "loss_inter", "loss_aug"}, set()),
+    "baseline-tn": ({"loss_seg", "loss_all"}, set(), set()),
+    "bcdm-tn": ({"loss_seg"}, set(), {"loss_cdd_before", "loss_cdd_after", "loss_all"}),
+    # with dropout off loss_aug passes through no threshold of its own
+    "prototype_mt-tn": ({"loss_seg", "loss_adv", "loss_D", "loss_D2", "loss_src_reg",
+                         "loss_aug"}, {"loss_all", "loss_intra", "loss_inter"}, set()),
 }
 # absolute, JAX's values (test_mesh_equivalence.py:248); measured on the
 # CPU, 2 ranks against 1 process: tight <= 2.4e-6, loose <= 1.9e-6
@@ -224,9 +239,14 @@ METRIC_ATOL = {"tight": 1e-5, "loose": 2e-2, "post": 4e-2}
 # bcdm), and each tensor's largest |diff| over the largest gradient
 # (measured <= 0.134, tn)
 GRAD_L2_RTOL, GRAD_MAX_RTOL = 0.1, 0.25
+# bcdm under tn: the gradients of its fifth update, after four Adam steps,
+# sit on a float32 floor above GRAD_L2_RTOL: one process against itself on
+# the same batch with the rows reordered inside each half gives 0.156
+# (measured 2 ranks 0.147; halving each rank's own rows instead gave 1.62)
+GRAD_L2_RTOL_CASE = {"bcdm-tn": 0.25}
 # running stats, relative to each tensor's largest entry (floor 1e-3):
 # measured <= 5.8e-5; bcdm's later forwards follow its updates (0.072)
-STATS_RTOL = {"bcdm": 0.25}
+STATS_RTOL = {"bcdm": 0.25, "bcdm-tn": 0.25}
 STATS_RTOL_DEFAULT = 3e-4
 PARAM_MEDIAN_LR = 0.2  # G params after Adam: median |diff| / lr (measured 0.0)
 BANK_ATOL = 1e-4  # EMA prototype banks and the disk bank (measured <= 2.3e-5)
@@ -262,7 +282,7 @@ def compare_case(name: str, one: dict, ranks: list, metric_atol: dict = METRIC_A
         gmax = max(float(g.abs().max()) for g in g1.values())
         diff = torch.cat([(g1[k] - g2[k]).flatten() for k in g1])
         l2 = float(diff.norm() / torch.cat([g.flatten() for g in g1.values()]).norm())
-        if not l2 <= GRAD_L2_RTOL:
+        if not l2 <= GRAD_L2_RTOL_CASE.get(name, GRAD_L2_RTOL):
             bad.append(f"gradients: |diff| / |grad| {l2:.3g}")
         worst = max(g1, key=lambda k: float((g1[k] - g2[k]).abs().max()))
         if not float((g1[worst] - g2[worst]).abs().max()) <= GRAD_MAX_RTOL * gmax:

@@ -56,18 +56,16 @@ import sys
 import numpy as np
 
 from uda_clr_tpu_torch.utils.benchmarking import (
+    EPOCH,
+    LR_DIS,
+    LR_GEN,
     count_flops,
+    flagship_config,
     mfu,
     staged_train_batch,
     timed_windows,
 )
-from uda_clr_tpu_torch.utils.devinfo import (
-    A100_REFERENCE_IMG_PER_SEC,
-    device_name,
-    power_limit_w,
-)
-
-LR_GEN, LR_DIS, EPOCH = 1e-3, 2.5e-5, 30
+from uda_clr_tpu_torch.utils.devinfo import A100_REFERENCE_IMG_PER_SEC, card_fields
 
 
 def host_fed_row(step, state, device, size: int, batch: int, wire: str, backend: str,
@@ -116,7 +114,6 @@ def host_fed_row(step, state, device, size: int, batch: int, wire: str, backend:
 
 def main(argv=None) -> dict:
     from uda_clr_tpu_torch import resolve_device
-    from uda_clr_tpu_torch.config import Config
     from uda_clr_tpu_torch.models.layers import set_dropout_impl
     from uda_clr_tpu_torch.train.state import create_train_state
     from uda_clr_tpu_torch.train.steps import make_train_step
@@ -136,11 +133,7 @@ def main(argv=None) -> dict:
     # the production shape unless a test shrinks it
     size = int(os.environ.get("UDA_BENCH_SIZE", "512"))
     batch = int(os.environ.get("UDA_BENCH_BATCH", "8"))
-    cfg = Config()
-    cfg.model.compute_dtype = "bfloat16"
-    cfg.model.norm = norm
-    cfg.method.method = method
-    cfg.method.mc_samples = 8  # the reference's T
+    cfg = flagship_config(norm, method)
     cfg.method.mask_head_impl = os.environ.get("UDA_MASKHEAD_IMPL", "auto")
 
     state = create_train_state(cfg, seed=0, device=device, method=method)
@@ -154,7 +147,8 @@ def main(argv=None) -> dict:
     print("# first call, warm-up, timed windows...", file=sys.stderr, flush=True)
     state, stats = timed_windows(step_once, state, windows=args.windows, iters=args.iters)
     window_ms, med_ms = stats["window_ms"], stats["median_ms"]
-    kind = device_name(device)
+    card = card_fields(device)
+    kind = card["device_kind"]
     (state, metrics), flops = count_flops(lambda: step(state, data, LR_GEN, LR_DIS, EPOCH))
     loss = float(metrics["loss_all"])
     if not math.isfinite(loss):
@@ -184,8 +178,7 @@ def main(argv=None) -> dict:
         "step_tflops": round(step_tflops, 6),
         "host_fed": host_fed,
         "host_fed_f32": host_fed_f32,
-        "device_kind": kind,
-        "power_limit_w": power_limit_w(device.index or 0) if device.type == "cuda" else None,
+        **card,
         "first_call_s": round(stats["first_call_s"], 2),
     }
     in_order = ", ".join(f"{w:.2f}" for w in stats["window_ms_run_order"])

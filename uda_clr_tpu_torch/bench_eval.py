@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from uda_clr_tpu_torch.utils.benchmarking import count_flops, mfu, oom_message, timed_windows
-from uda_clr_tpu_torch.utils.devinfo import device_name, power_limit_w
+from uda_clr_tpu_torch.utils.devinfo import card_fields
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -68,7 +68,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     dtype, size = DTYPES[args.dtype], args.size
-    kind = device_name(device)
+    card = card_fields(device)
+    kind = card["device_kind"]
     gen = load_model(None, args.norm == "tn", device)
 
     rng = np.random.default_rng(0)
@@ -123,8 +124,7 @@ def main(argv=None) -> dict:
         "metric": f"eval/serving forward throughput ({size}x{size}, {args.dtype}, {args.norm})",
         "rows": rows,
         "host_postprocess_ms_per_image": round(post_ms, 1) if post_ms is not None else None,
-        "device_kind": kind,
-        "power_limit_w": power_limit_w(device.index or 0) if device.type == "cuda" else None,
+        **card,
     }
     print(json.dumps(result), flush=True)
     return result

@@ -11,7 +11,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uda_clr_tpu_torch.models.layers import Conv2d, DropoutStream, dropout
-from uda_clr_tpu_torch.models.norm import DomainNorm2d
+from uda_clr_tpu_torch.models.norm import DomainNorm2d, current_rows, global_rows
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
 from uda_clr_tpu_torch.parallel import spatial
 
@@ -78,7 +78,13 @@ class ASPP(nn.Module):
             y = F.relu(bn(conv(pooled), train, domains))
         else:
             groups = 2 if domains == 2 or (bn.mode == "tn" and domains != 0) else 1
-            y = F.relu(bn(conv(spatial.batch_share(pooled, groups)), train, domains))
+            # a one-domain batch's layout (norm.global_rows) follows the rows
+            layout = current_rows()
+            if layout is not None:
+                index = spatial.batch_share(torch.tensor(layout[0]), groups).tolist()
+                layout = (index, layout[1])
+            with global_rows(layout):
+                y = F.relu(bn(conv(spatial.batch_share(pooled, groups)), train, domains))
             y = spatial.gather_batch(y, groups)
         return y.expand(-1, -1, x.shape[2], x.shape[3])
 

@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from uda_clr_tpu_torch.models.norm import DomainNorm2d, frozen_stats
+from uda_clr_tpu_torch.models.norm import DomainNorm2d, current_rows, frozen_stats, global_rows
 from uda_clr_tpu_torch.ops.dropout import fused_dropout
 from uda_clr_tpu_torch.ops.philox import MASK64, splitmix64
 from uda_clr_tpu_torch.parallel import spatial
@@ -84,11 +84,20 @@ def run_block(block: nn.Module, x: torch.Tensor, train: bool, domains: int,
     backward recomputes the inside under :func:`frozen_stats`, so the
     recompute normalises with the same batch moments (no norm reads its
     running stats in train mode) and writes the running stats no second
-    time. Backbones draw no random numbers, so no generator state is kept."""
+    time. Backbones draw no random numbers, so no generator state is kept.
+    The recompute, which runs in the backward, restores the forward's
+    one-domain row layout (norm.global_rows)."""
     if remat and train and torch.is_grad_enabled():
+        rows = current_rows()
+
+        @contextlib.contextmanager
+        def recompute():
+            with frozen_stats(block), global_rows(rows):
+                yield
+
         return checkpoint(block, x, train, domains, use_reentrant=False,
                           preserve_rng_state=False,
-                          context_fn=lambda: (contextlib.nullcontext(), frozen_stats(block)))
+                          context_fn=lambda: (contextlib.nullcontext(), recompute()))
     return block(x, train, domains)
 
 

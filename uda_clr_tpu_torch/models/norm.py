@@ -23,7 +23,12 @@ each channel by the detached transferability factor ``a1 = 1 + C p / sum(p)``,
 *unbiased* variance), folded into the affine as scale * a1 and bias * a1:
 
 * train mode always splits the batch into [source; target] halves, whatever
-  ``domains`` says (an odd batch splits unevenly, source first);
+  ``domains`` says (an odd batch splits unevenly, source first). JAX halves
+  the global batch. Under data parallelism the S||T batch ([S_r; T_r]) and
+  the slow MC pass's [T_r; T_r] hold a shard of each global half in their
+  local halves; a batch of one domain is sharded by rows, so the step
+  names this rank's rows of it (:func:`global_rows`) and each local row
+  goes to the half its global index lies in;
 * ``domains=0`` is the MC pass's degenerate mode: the batch stands for an
   identical-halves [T; T] repeat, for which a1 == 2 exactly, so the layer
   normalizes with its own batch moments times 2 and writes no stats;
@@ -44,14 +49,43 @@ from uda_clr_tpu_torch.parallel.distributed import world_size
 from uda_clr_tpu_torch.parallel.reduce import all_sum
 
 
-def _moments(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor, object]]:
+# (the global indices of the local rows, the global batch size) of the
+# one-domain batch in the forward running now, or None (:func:`global_rows`)
+_ROWS: tuple[tuple[int, ...], int] | None = None
+
+
+@contextlib.contextmanager
+def global_rows(rows: tuple[tuple[int, ...], int] | None):
+    """Within the block, TransNorm's train-mode forwards under data
+    parallelism take local row ``i`` of their batch as row ``index[i]`` of a
+    global batch of ``total`` (``rows = (index, total)``, ``index``
+    ascending) and split that global batch into its [source; target] halves
+    (``None``: the local halves are shards of the global ones, as in the
+    S||T and [T; T] batches). One process ignores it."""
+    global _ROWS
+    before, _ROWS = _ROWS, None if rows is None else (tuple(rows[0]), rows[1])
+    try:
+        yield
+    finally:
+        _ROWS = before
+
+
+def current_rows() -> tuple[tuple[int, ...], int] | None:
+    """The layout :func:`global_rows` set (for a recompute to restore, or a
+    layer that hands a norm a subset of the rows)."""
+    return _ROWS
+
+
+def _moments(xs, dims,
+             equal_shards: bool = True) -> list[tuple[torch.Tensor, torch.Tensor, object]]:
     """float32 mean, biased variance and count ``n`` of each tensor in
     ``xs`` over ``dims``, over the global batch: under data parallelism one
     packed ``all_sum`` of every part's [sum x, sum x^2] and its count. ``n``
     is a Python int (the local count times the world size: equal shards),
-    except under the spatial mesh, where it is the all-summed count (a 0-d
-    tensor): a stripe may carry the image's padding rows (MobileNet's
-    expansion), so the stripes' counts need not be equal."""
+    except under the spatial mesh or with ``equal_shards`` False, where it
+    is the all-summed count (a 0-d tensor): a stripe may carry the image's
+    padding rows (MobileNet's expansion), and a rank may hold more rows of
+    one half of a one-domain batch than another rank does."""
     if world_size() == 1:
         out = []
         for x in xs:
@@ -74,7 +108,8 @@ def _moments(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor, object]]:
         size = math.prod(shape)
         mean = packed[offset:offset + size].reshape(shape) / n[i]
         ex2 = packed[offset + size:offset + 2 * size].reshape(shape) / n[i]
-        count = n[i].detach() if spatial.active() else counts[i] * world_size()
+        count = n[i].detach() if spatial.active() or not equal_shards \
+            else counts[i] * world_size()
         out.append((mean, torch.clamp(ex2 - mean * mean, min=0.0), count))
         offset += 2 * size
     return out
@@ -174,23 +209,17 @@ class DomainNorm2d(nn.Module):
             mu, v = batch_moments(x, (0, 2, 3))
             return normalize(x, mu, v, scale * 2.0, bias * 2.0, eps)
         b = x.shape[0] // 2
+        if _ROWS is not None and world_size() > 1:
+            # a shard of a one-domain batch: the rows before the global
+            # batch's middle are source, the others target
+            index, total = _ROWS
+            if len(index) != x.shape[0]:
+                raise ValueError(f"TransNorm: a layout of {len(index)} rows for a batch of "
+                                 f"{x.shape[0]}")
+            return self._forward_tn_split(x, sum(i < total // 2 for i in index))
         if x.shape[0] % 2:
-            if world_size() > 1:
-                raise ValueError(f"TransNorm splits a batch of {x.shape[0]} unevenly into "
-                                 f"source and target; data parallelism needs equal halves")
             # the reference's uneven b//2 split (batchnorm.py:439-442)
-            halves = (x[:b], x[b:])
-            moments = [batch_moments(h, (0, 2, 3)) for h in halves]
-            counts = [h.shape[0] * x.shape[2] * x.shape[3] for h in halves]
-            for (mu, v), n, dom in zip(moments, counts, ("source", "target")):
-                self._ema(mu.detach(), v.detach(), n, dom)
-            (mu_s, v_s), (mu_t, v_t) = moments
-            ub_s = counts[0] / max(counts[0] - 1, 1)
-            ub_t = counts[1] / max(counts[1] - 1, 1)
-            a1 = transfer_factor(mu_s.detach(), v_s.detach() * ub_s,
-                                 mu_t.detach(), v_t.detach() * ub_t, eps)
-            return torch.cat([normalize(h, mu, v, scale * a1, bias * a1, eps)
-                              for h, (mu, v) in zip(halves, moments)], dim=0)
+            return self._forward_tn_split(x, b)
         x2 = x.unflatten(0, (2, b))  # [2, b, C, H, W]
         mu2, v2, n = _moments([x2], (1, 3, 4))[0]  # [2, C]; n per half, global
         self._ema(mu2[0].detach(), v2[0].detach(), n, "source")
@@ -200,6 +229,21 @@ class DomainNorm2d(nn.Module):
         z = normalize(x2, mu2[:, None, :], v2[:, None, :], (scale * a1).expand(2, 1, -1),
                       bias * a1, eps)
         return z.flatten(0, 1)
+
+    def _forward_tn_split(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        """Train-mode TransNorm with the local rows ``[:k]`` in the source
+        half and ``[k:]`` in the target half, each half's moments and count
+        over the global batch, its own unbiased factor in ``a1``."""
+        scale, bias, eps = self.weight, self.bias, self.eps
+        halves = (x[:k], x[k:])
+        moments = _moments(halves, (0, 2, 3), equal_shards=False)
+        for (mu, v, n), dom in zip(moments, ("source", "target")):
+            self._ema(mu.detach(), v.detach(), n, dom)
+        (mu_s, v_s, n_s), (mu_t, v_t, n_t) = moments
+        a1 = transfer_factor(mu_s.detach(), v_s.detach() * _unbias(n_s),
+                             mu_t.detach(), v_t.detach() * _unbias(n_t), eps)
+        return torch.cat([normalize(h, mu, v, scale * a1, bias * a1, eps)
+                          for h, (mu, v, _) in zip(halves, moments)], dim=0)
 
     def forward(self, x: torch.Tensor, train: bool, domains: int = 1) -> torch.Tensor:
         if self.mode == "tn":

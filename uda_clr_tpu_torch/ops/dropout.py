@@ -34,9 +34,11 @@ LIBRARY = cuda_build.KernelLibrary("dropout.cu", {
     "uda_dropout": [P, P, I64, U64, U32, F32, INT, INT, P],
 })
 
-# Launches of the CUDA kernel by the Function's forward and backward.
+# Launches of the CUDA kernel by the Function's forward and backward, and
+# the bytes they moved (each reads its input and writes its output once)
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
+BYTES = 0
 
 _CHUNK = 1 << 24  # elements per step of the plain version's Philox replay
 
@@ -102,8 +104,9 @@ def launch(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
 def _apply(x: torch.Tensor, seed: int, rate: float, backward: bool) -> torch.Tensor:
     if not x.is_cuda:
         return dropout_plain(x, seed, rate)
-    global LAUNCHES_FWD, LAUNCHES_BWD
+    global LAUNCHES_FWD, LAUNCHES_BWD, BYTES
     y = launch(x, seed, rate)
+    BYTES += 2 * y.numel() * y.element_size()
     if backward:
         LAUNCHES_BWD += 1
     else:

@@ -28,10 +28,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from uda_clr_tpu_torch.config import Config
 from uda_clr_tpu_torch.models import layers
 from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state
 from uda_clr_tpu_torch.train.steps import make_train_step
+from uda_clr_tpu_torch.utils.benchmarking import flagship_config
 
 # operator-name fragments -> family, first match wins
 FAMILIES = (
@@ -67,10 +67,7 @@ def main() -> None:
         raise SystemExit("profile_step: needs a CUDA card")
 
     b, size = 8, 512
-    cfg = Config()
-    cfg.model.compute_dtype = "bfloat16"
-    cfg.method.mc_samples = 8
-    cfg.model.norm = args.norm
+    cfg = flagship_config(args.norm)
     cfg.model.backbone = args.backbone
     cfg.model.output_stride = args.out_stride
     cfg.model.remat = args.remat

@@ -68,6 +68,7 @@ from uda_clr_tpu_torch.models.norm import (
     batch_moments,
     batch_moments_parts,
     frozen_stats,
+    global_rows,
     normalize,
 )
 from uda_clr_tpu_torch.ops import losses as L
@@ -235,6 +236,15 @@ def bcdm_seg_loss(outs: DeepLabOutputs, map_s, boundary_s, temperature: float = 
     return L.bce_sigmoid_stable(o, map_s) + L.mse(torch.sigmoid(bd), boundary_s)
 
 
+def one_domain(n: int):
+    """TransNorm's layout of a one-domain forward of ``n`` local images
+    (:func:`norm.global_rows`): this data index's rows of the global batch,
+    whose first half is source, as JAX splits it."""
+    d_index, n_data = spatial.data_coords()
+    rows = local_rows(n * n_data, d_index, n_data)
+    return global_rows((range(rows.start, rows.stop), n * n_data))
+
+
 def _check_stripes(gen: DeepLab, image: torch.Tensor) -> None:
     """Under the spatial mesh: the image's rows (n_space stripes of this
     one's) split evenly at every stride-2 stage of ``gen``."""
@@ -303,7 +313,8 @@ def make_bcdm_step(cfg: Config):
             return discrepancy(o1.mask_logits.float(), o2.mask_logits.float())
 
         # ---- A: the supervised source step of F, C1 and C2 ----
-        o1, o2 = both_heads(*gen.features(image_s, True, 1))
+        with one_domain(image_s.shape[0]):
+            o1, o2 = both_heads(*gen.features(image_s, True, 1))
         loss_seg = (bcdm_seg_loss(o1, map_s, boundary_s, BCDM_TEMPERATURE)
                     + bcdm_seg_loss(o2, map_s, boundary_s, BCDM_TEMPERATURE))
         viz = {"pred_s": torch.sigmoid(o1.mask_logits.detach().float()[0]),
@@ -313,14 +324,18 @@ def make_bcdm_step(cfg: Config):
         # ---- B: the dead source forward (running stats only), then the
         # classifiers' discrepancy step on target ----
         with torch.no_grad():
-            both_heads(*gen.features(image_s, True, 1))
-            high, low = gen.features(image_t, True, 1)
-        cdd_before = cdd(*both_heads(high, low))
+            with one_domain(image_s.shape[0]):
+                both_heads(*gen.features(image_s, True, 1))
+            with one_domain(image_t.shape[0]):
+                high, low = gen.features(image_t, True, 1)
+        with one_domain(image_t.shape[0]):
+            cdd_before = cdd(*both_heads(high, low))
         update(w * cdd_before, ("cls1", "cls2"))
 
         # ---- C: the feature extractor's discrepancy steps on target ----
         for _ in range(BCDM_INNER_FEA_STEPS):
-            cdd_after = cdd(*both_heads(*gen.features(image_t, True, 1)))
+            with one_domain(image_t.shape[0]):
+                cdd_after = cdd(*both_heads(*gen.features(image_t, True, 1)))
             update(w * cdd_after, ("fea",))
 
         state.step += 1
@@ -415,11 +430,12 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             mc = mc_dropout_forward(gen, image_t, mcfg.mc_samples, mcfg.mc_fast, g,
                                     step_seed, mcfg.mask_head_impl).float()
 
-        # ---- one forward of the batch ----
-        high, low = gen.features(x_all, True, domains)
-        fp_all, ll_all = gen.heads_prefix(high, low, True, domains)
-        outs = gen.heads_suffix(fp_all, ll_all, hw, True, domains,
-                                layers_lib.DropoutStream(g, stream_seed(step_seed, _MAIN_FORWARD)))
+        # ---- one forward of the batch (S||T, or the source alone) ----
+        with global_rows(None) if use_target else one_domain(b):
+            high, low = gen.features(x_all, True, domains)
+            fp_all, ll_all = gen.heads_prefix(high, low, True, domains)
+            outs = gen.heads_suffix(fp_all, ll_all, hw, True, domains, layers_lib.DropoutStream(
+                g, stream_seed(step_seed, _MAIN_FORWARD)))
         if mc_inline:
             mc = mc_suffix(gen, fp_all[b:].detach(), ll_all[b:].detach(), hw, b,
                            mcfg.mc_samples, g, step_seed,
@@ -500,7 +516,8 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                                   image_t.device)[local_rows(b * n_data, d_index, n_data)]
             x_aug = strong_augment(image_t.float(), draws).to(dt)
             aug_stream = layers_lib.DropoutStream(g, stream_seed(step_seed, _AUG_FORWARD))
-            with frozen_stats(gen), torch.set_grad_enabled(mcfg.aug_backward):
+            with frozen_stats(gen), torch.set_grad_enabled(mcfg.aug_backward), \
+                    one_domain(x_aug.shape[0]):
                 o_aug = gen(x_aug, True, 1, aug_stream).mask_logits.float()
             per_px = L.bce_sigmoid_stable_elementwise(o_aug, pseudo)
             # a data-dependent denominator: N * local sum / global sum

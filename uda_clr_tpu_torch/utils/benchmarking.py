@@ -41,6 +41,35 @@ StepOnce = Callable[[Any], Tuple[Any, Any]]
 MASK_HEAD_FLOPS_PER_ROW = 2 * 305 * 2
 
 
+# the train step's arguments in every benchmark: lr_gen, lr_dis, and an
+# epoch past the reference's 20 warmup epochs
+LR_GEN, LR_DIS, EPOCH = 1e-3, 2.5e-5, 30
+
+
+def flagship_config(norm: str = "bn", method: str = "prototype_full"):
+    """The configuration the benchmarks and measurement tools time: the
+    reference's production step (mobilenet DeepLabv3+ OS16, T=8 MC
+    samples, bfloat16) under ``norm``."""
+    from uda_clr_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.model.norm = norm
+    cfg.method.method = method
+    cfg.method.mc_samples = 8  # the reference's T
+    return cfg
+
+
+def timed_window(step_once: StepOnce, carry, iters: int):
+    """One window of ``iters`` chained calls; returns ``(carry, ms per
+    call)``, the clock stopped on ``float(barrier)`` of the last."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        carry, barrier = step_once(carry)
+    float(barrier)
+    return carry, (time.perf_counter() - t0) / iters * 1000.0
+
+
 def timed_windows(step_once: StepOnce, carry, windows: int = 5, iters: int = 10,
                   warmup: int = 2):
     """The first call (timed), ``warmup`` more, then ``windows`` windows of
@@ -62,11 +91,8 @@ def timed_windows(step_once: StepOnce, carry, windows: int = 5, iters: int = 10,
     float(barrier)
     window_ms = []
     for _ in range(windows):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            carry, barrier = step_once(carry)
-        float(barrier)
-        window_ms.append((time.perf_counter() - t0) / iters * 1000.0)
+        carry, ms = timed_window(step_once, carry, iters)
+        window_ms.append(ms)
     return carry, {
         "first_call_s": first_call_s,
         "window_ms": sorted(window_ms),
@@ -88,18 +114,24 @@ def _conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _padd
     return forward * (int(bool(output_mask[0])) + int(bool(output_mask[1])))
 
 
+def flop_counter():
+    """A ``FlopCounterMode`` whose convolution gradients each cost their
+    forward (:func:`_conv_backward_flops`)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    return FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.convolution_backward: _conv_backward_flops})
+
+
 def count_flops(fn: Callable[[], Any]):
     """Run ``fn()`` once under ``torch.utils.flop_counter.FlopCounterMode``;
     returns ``(fn's result, flops)``. Counts the convolutions, both of their
     gradients and the matrix products, plus the 305 -> 2 products of the
     mask-head kernels' CUDA launches, which FlopCounterMode cannot see."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from uda_clr_tpu_torch.ops import mask_head
 
     rows0 = mask_head.ROWS
-    counter = FlopCounterMode(display=False, custom_mapping={
-        torch.ops.aten.convolution_backward: _conv_backward_flops})
+    counter = flop_counter()
     with counter:
         out = fn()
     rows = mask_head.ROWS - rows0

@@ -74,3 +74,14 @@ def power_limit_w(index: int = 0):
         return float(proc.stdout.strip().splitlines()[0])
     except (IndexError, ValueError):
         return None
+
+
+def card_fields(device) -> dict:
+    """The card a result was measured on, as every benchmark's JSON line
+    names it: ``device_kind`` (:func:`device_name`) and ``power_limit_w``
+    (None on the CPU)."""
+    import torch
+
+    device = torch.device(device)
+    return {"device_kind": device_name(device),
+            "power_limit_w": power_limit_w(device.index or 0) if device.type == "cuda" else None}
