@@ -45,6 +45,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    against process workers (``bench_loader_backend``); one K1 launch per
    prototype-phase step of every tool that runs the flagship's fast MC
    pass, none elsewhere;
+3d. trains the long-horizon family's flagship through its entry point
+   (``uda_clr_tpu_torch.longrun.main``): at the family's size (64^2, B 2,
+   T=4, float32, TF32 and dropout off) 60 iterations on the card, on the
+   CPU and with the stem conv x (1 + 1e-6) on the card (iteration 0 card
+   against CPU within 1e-4 per key; one K1 launch per iteration on the
+   card); then at full width 100 iterations in bf16 under 'xla16' and 40
+   in float32 with dropout off beside its chaos twin and a bf16 twin, all
+   from one start (finite losses, a falling smoothed loss_all, one K1
+   launch per iteration), printing each gap beside the chaos control's;
 4. drives the flagship ``prototype_full`` step at full width (mobilenet
    DeepLabv3+ OS16, 512x512, 8 source + 8 target images, T=8 MC samples,
    bfloat16): one warmup step, then five prototype-phase steps, checking
@@ -155,8 +164,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 ``python3 chip_smoke.py --dp-only`` builds the kernels and runs step 16
 alone, ``--spatial-only`` step 17 alone (with its own one-process steps),
-``--bench-only`` step 3b alone, ``--tools-only`` step 3c alone; none prints
-a result line.
+``--bench-only`` step 3b alone, ``--tools-only`` step 3c alone,
+``--longrun-only`` step 3d alone; none prints a result line.
 
 It exits non-zero, with no result line, when there is no CUDA card, when
 the port's package is not beside it, or when any phase fails. float32
@@ -239,6 +248,12 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "vs_baseline_range", "st
 BENCH_EVAL_BATCHES = "8,32"
 # the tools phase: the bounds on bench_norm_ab's tn/bn (PR 5 measured 1.132)
 TN_OVER_BN = (1.0, 1.6)
+# the long-horizon phase (uda_clr_tpu_torch.longrun): (a) the family's
+# flagship size, card against CPU and the chaos twin; (b) full width, bf16
+# with dropout on, float32 with dropout off and its chaos and bf16 twins
+LONGRUN_SMALL_ITERS = 60
+LONGRUN_ITER0_RTOL = 1e-4  # iteration 0, card against CPU, per key
+LONGRUN_BF16_ITERS, LONGRUN_F32_ITERS = 100, 40
 
 
 def fail(msg: str) -> None:
@@ -1498,6 +1513,111 @@ def tools_phase(torch, mh, K3, card: str) -> dict:
                                                                      "k3_bwd")}
 
 
+def read_rows(path: str, prefix: str, keys) -> list:
+    """The ``<prefix>_<key>`` columns of a longrun CSV, per iteration."""
+    with open(path) as f:
+        return [{k: float(r[f"{prefix}_{k}"]) for k in keys} for r in csv.DictReader(f)]
+
+
+def longrun_phase(torch, mh, K3, card: str) -> dict:
+    """The long-horizon phase (step 3d) through ``uda_clr_tpu_torch.longrun.main``:
+    (a) the flagship at the family's size (64^2, B 2, T=4, float32, TF32
+    and dropout off) for 60 iterations on the card, on the CPU and with the
+    stem conv x (1 + 1e-6) on the card: finite losses, iteration 0 card
+    against CPU within LONGRUN_ITER0_RTOL per key, one K1 launch per
+    iteration on the card (the MC head at rate 0), none on the CPU; (b) the
+    flagship at full width (512^2, B 8+8, T=8, the u8 wire, all cores'
+    loader threads): 100 iterations in bf16 under 'xla16' (K1 at rate 0.1,
+    no K3), then 40 in float32 with dropout off, its chaos twin and its
+    bf16 twin (dropout off), from the same start: finite losses, one K1
+    launch per iteration, and a smoothed loss_all that falls from its first
+    window to its last in the bf16 and the float32 run. Prints each gap
+    beside the chaos control's. Returns the launch counts."""
+    from uda_clr_tpu_torch import longrun
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_longrun_")
+    keys = longrun.FAMILY["prototype_full"].keys
+    cores = str(os.cpu_count() or 1)
+    total = {"k1": 0, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
+    try:
+        reset_counts(mh, K3)
+        t0 = time.perf_counter()
+        small = json_line(longrun.main, [
+            "--method", "prototype_full", "--device", "cuda", "--iters",
+            str(LONGRUN_SMALL_ITERS), "--compare-cpu", "--chaos",
+            "--out", os.path.join(tmp, "small.csv")])
+        small_s = time.perf_counter() - t0
+        got = counts(mh, K3)
+        want = {"k1": 2 * LONGRUN_SMALL_ITERS, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
+        runs = small["runs"]
+        if got != want or [runs[r]["launches"]["k1"] for r in ("port", "cpu", "chaos")] != \
+                [LONGRUN_SMALL_ITERS, 0, LONGRUN_SMALL_ITERS]:
+            fail(f"longrun (a): launches {got}, per run "
+                 f"{ {r: v['launches'] for r, v in runs.items()} }, expected one K1 per "
+                 f"prototype-phase iteration on the card")
+        cpu, chaos = small["gaps"]["cpu"], small["gaps"]["chaos"]
+        off = {k: cpu[k]["early"][0] for k in keys if cpu[k]["early"][0] > LONGRUN_ITER0_RTOL}
+        if off:
+            fail(f"longrun (a): iteration 0 card against CPU {off} > {LONGRUN_ITER0_RTOL}")
+        say(f"longrun (a) ({card}), flagship 64^2 B2 T4 float32, {LONGRUN_SMALL_ITERS} "
+            f"iterations, {small_s:.1f} s; val Dice card {runs['port']['dice']} CPU "
+            f"{runs['cpu']['dice']} chaos {runs['chaos']['dice']}")
+        for k in keys:
+            say(f"  {k:10s} card vs CPU: smoothed mean {cpu[k]['mean']:.4g} max "
+                f"{cpu[k]['max']:.4g}, iterations 0-4 "
+                f"{[float(f'{v:.3g}') for v in cpu[k]['early']]} | chaos: smoothed mean "
+                f"{chaos[k]['mean']:.4g} max {chaos[k]['max']:.4g}, iterations 0-4 "
+                f"{[float(f'{v:.3g}') for v in chaos[k]['early']]}")
+        total = {k: total[k] + got[k] for k in total}
+        torch.cuda.empty_cache()
+
+        full = ["--method", "prototype_full", "--device", "cuda", "--size", "512", "--batch",
+                "8", "--mc-samples", "8", "--wire", "u8", "--workers", cores]
+        reset_counts(mh, K3)
+        t0 = time.perf_counter()
+        bf16 = json_line(longrun.main, full + [
+            "--iters", str(LONGRUN_BF16_ITERS), "--dtype", "bfloat16", "--dropout", "xla16",
+            "--out", os.path.join(tmp, "bf16.csv")])
+        torch.cuda.empty_cache()
+        f32 = json_line(longrun.main, full + [
+            "--iters", str(LONGRUN_F32_ITERS), "--chaos", "--twin-dtype", "bfloat16",
+            "--out", os.path.join(tmp, "f32.csv")])
+        full_s = time.perf_counter() - t0
+        got = counts(mh, K3)
+        want = {"k1": LONGRUN_BF16_ITERS + 3 * LONGRUN_F32_ITERS, "k2": 0, "k3_fwd": 0,
+                "k3_bwd": 0}
+        if got != want:
+            fail(f"longrun (b): launches {got}, expected {want} (one K1 per iteration)")
+        for name, res in (("bf16", bf16), ("float32", f32)):
+            first, last = res["runs"]["port"]["loss_all_windows"]
+            if not last < first:
+                fail(f"longrun (b): {name} smoothed loss_all {first} -> {last} does not fall")
+        rows16 = read_rows(os.path.join(tmp, "bf16.csv"), "port", keys)[:LONGRUN_F32_ITERS]
+        rows32 = read_rows(os.path.join(tmp, "f32.csv"), "port", keys)
+        bf_gap = longrun.compare(rows16, rows32, keys)
+        f_chaos, f_bf16 = f32["gaps"]["chaos"], f32["gaps"]["bfloat16"]
+        say(f"longrun (b) ({card}), flagship 512^2 B8+8 T8: bf16 'xla16' "
+            f"{LONGRUN_BF16_ITERS} iterations {bf16['runs']['port']['seconds']:.1f} s, loss_all "
+            f"windows {bf16['runs']['port']['loss_all_windows']}, val Dice "
+            f"{bf16['runs']['port']['dice']}; float32 {LONGRUN_F32_ITERS} iterations "
+            f"{f32['runs']['port']['seconds']:.1f} s, windows "
+            f"{f32['runs']['port']['loss_all_windows']}, val Dice {f32['runs']['port']['dice']}"
+            f", chaos {f32['runs']['chaos']['dice']}, bf16 twin (dropout off) "
+            f"{f32['runs']['bfloat16']['dice']}; loaders {bf16['load_s']:.1f} + "
+            f"{f32['load_s']:.1f} s; phase {full_s:.1f} s")
+        for k in keys:
+            say(f"  {k:10s} bf16 'xla16' vs float32 (first {LONGRUN_F32_ITERS}): smoothed mean "
+                f"{bf_gap[k]['mean']:.4g} max {bf_gap[k]['max']:.4g} | bf16 twin, dropout off: "
+                f"mean {f_bf16[k]['mean']:.4g} max {f_bf16[k]['max']:.4g} | float32 chaos: "
+                f"mean {f_chaos[k]['mean']:.4g} max {f_chaos[k]['max']:.4g}")
+        total = {k: total[k] + got[k] for k in total}
+    finally:
+        longrun.STREAMS.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
 def eval_phase(torch, np, evaluate, ckpt: str, tmp: str, device: str = "cuda",
                size: int = 512) -> None:
     """``tools/evaluate.py`` on the flagship CLI run's checkpoint over 8
@@ -2224,11 +2344,16 @@ def main() -> None:
         tools_phase(torch, mh, K3, card)
         say("chip_smoke --tools-only: the tools phase passed")
         return
+    if "--longrun-only" in sys.argv[1:]:
+        longrun_phase(torch, mh, K3, card)
+        say("chip_smoke --longrun-only: the long-horizon phase passed")
+        return
     mask_numbers = kernel_phase(torch, mh, batch_moments, kernel_seed)
     k3_numbers = dropout_phase(torch, F, K3)
     small_parity_phase(torch, np, ports)
     benched = bench_phase(torch, mh, K3, batch_moments, card)
     tooled = tools_phase(torch, mh, K3, card)
+    longran = longrun_phase(torch, mh, K3, card)
 
     # the flagship path: K1 once per prototype-phase step, no K3 under 'xla16'
     flagship, flagship_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
@@ -2330,7 +2455,7 @@ def main() -> None:
     dp, single = dp_phase(torch, np, ports, cli.build_config, LOG_HEADERS, flagship_ms, card)
     spatial = spatial_phase(torch, np, ports, cli.build_config, LOG_HEADERS, card, single)
     # each kernel's launches over every path this run drove
-    paths = (benched, tooled, flagship, mt, flagship_tn, bank_tn, slow, wotn_counts,
+    paths = (benched, tooled, longran, flagship, mt, flagship_tn, bank_tn, slow, wotn_counts,
              *backbone_paths, remat, bcdm, bcdm_k3, trainer, bank_trainer, bcdm_trainer, native_trainer, images,
              profiled, dp, spatial)
     launched = {k: sum(p[k] for p in paths) for k in flagship}

@@ -13,7 +13,8 @@ collectives and checks in one process (parallel/). The benchmarks
 ``utils.hostfeed``, ``utils.devinfo``), and the measurement tools
 (``roofline_closure`` with ``utils.opcount``, ``bench_norm_ab``,
 ``bench_batch_scaling``, ``bench_e2e``, ``ab_mc_fast``, ``bench_pipeline``,
-``bench_loader_backend``) are among the modules imported.
+``bench_loader_backend``) and the long-horizon harness (``longrun``) are
+among the modules imported; none loads the repo's ``tools`` package.
 Checked in a fresh interpreter, since this test process has both loaded."""
 
 import pkgutil
@@ -47,7 +48,7 @@ for name in names:
 # the benchmarks and the modules they stand on
 for name in ('bench', 'bench_eval', 'utils.benchmarking', 'utils.hostfeed', 'utils.devinfo',
              'roofline_closure', 'utils.opcount', 'bench_norm_ab', 'bench_batch_scaling',
-             'bench_e2e', 'ab_mc_fast', 'bench_pipeline', 'bench_loader_backend'):
+             'bench_e2e', 'ab_mc_fast', 'bench_pipeline', 'bench_loader_backend', 'longrun'):
     assert 'uda_clr_tpu_torch.' + name in names, name
 import runpy
 runpy.run_path('chip_smoke.py', run_name='chip_smoke')
@@ -97,6 +98,7 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.')
              or m == 'flax' or m.startswith('flax.')
              or m == 'uda_clr_tpu' or m.startswith('uda_clr_tpu.')
+             or m == 'tools' or m.startswith('tools.')
              or m.split('.')[0] in BLOCKED)
 print(len(names))
 print(' '.join(bad))
@@ -109,7 +111,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.splitlines()[-2:]  # the probe's last two lines
     modules = list(pkgutil.walk_packages(uda_clr_tpu_torch.__path__, "uda_clr_tpu_torch."))
-    assert int(count) == len(modules) + 1 >= 71
+    assert int(count) == len(modules) + 1 >= 72
     assert bad == "", f"the port loaded: {bad}"
 
 

@@ -180,17 +180,26 @@ def test_backbone_on_two_stripes_equals_whole(backbone, spawned):
     the deepest outputs; the whole image here sums each norm's moments as
     two halves, as the two ranks do, which leaves the halos' own error:
     measured <= 1.4e-6 on the outputs, 4.5e-3 on the input's gradient (the
-    norms' backward sums in another order), 1.8e-7 on the running stats."""
+    norms' backward sums in another order), 1.8e-7 on the running stats.
+    On an AMD EPYC host xception's ``high`` reads 1.005e-5 (resnet's
+    6.3e-6): with the moments summed in float64 the stripes equal the
+    whole image to 9.0e-12, and both float32 runs lie 1.2e-3 from that
+    float64 result, so the gap is the float32 sums' order, not the halos.
+    There the running stats' gap varies from call to call, 3.0e-6 to
+    3.5e-5 (xception's ``block20.skipbn.running_mean``), against 1.4e-4
+    for either float32 run from float64 and 1.6e-12 with float64 sums."""
     here, got, _ = spawned
     want = here["backbones"][backbone]
     ranks = [r["backbones"][backbone] for r in got["1x2"]]
-    for i, (what, rtol) in enumerate((("high", 1e-5), ("low", 1e-5), ("gradient", 2e-2))):
+    # high: measured 1.4e-6, 1.005e-5 (AMD EPYC)
+    for i, (what, rtol) in enumerate((("high", 3e-5), ("low", 1e-5), ("gradient", 2e-2))):
         got = torch.cat([r[i] for r in ranks], dim=2)
         err = float((got - want[i]).abs().max()) / float(want[i].abs().max())
         assert err <= rtol, f"{backbone} {what}: {err:.3g} of its largest entry"
     for k, v in want[3].items():
         err = float((ranks[0][3][k] - v).abs().max()) / max(float(v.abs().max()), 1e-3)
-        assert err <= 1e-6, f"{backbone} running stat {k}: {err:.3g}"
+        # measured 1.8e-7, 3.5e-5 (AMD EPYC)
+        assert err <= 1.2e-4, f"{backbone} running stat {k}: {err:.3g}"
 
 
 @pytest.mark.parametrize("wire", ["f32", "u8"])

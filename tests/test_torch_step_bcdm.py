@@ -43,9 +43,13 @@ from uda_clr_tpu_torch.models.deeplab import DeepLabOutputs
 # relative tolerance per iteration (measured value beside, margin >= 3x)
 # (iteration 0 follows one Adam step of every parameter for cdd_before and
 # five of the backbone's for cdd_after, each with its sign noise at lr)
+# (On an AMD EPYC host iteration 0 reads loss_seg 6.9e-6 and loss_all
+# 9.1e-6: there both frameworks' float32 losses lie 6.0e-3 from the port's
+# float64 one, so the gap between them is float32 noise; measured before;
+# measured on AMD EPYC.)
 BCDM_RTOL = {
-    "loss_seg": (2e-6, 7e-4),  # 5.0e-7, 2.3e-4
-    "loss_all": (5e-6, 7e-4),  # 1.4e-6, 2.3e-4
+    "loss_seg": (2.5e-5, 7e-4),  # 5.0e-7, 2.3e-4; 6.9e-6, 6.5e-5
+    "loss_all": (3e-5, 7e-4),  # 1.4e-6, 2.3e-4; 9.1e-6, 6.4e-5
     "loss_cdd_before": (1e-3, 1.4e-3),  # 3.0e-4, 4.6e-4
     "loss_cdd_after": (4e-3, 1.2e-3),  # 1.3e-3, 3.6e-4
 }
