@@ -119,10 +119,19 @@ def test_resume_is_exact(straight, tmp_path):
     out2, ref = straight
     first = _run_cli(tmp_path, "first", _small_cfg(1, ["--profile"]))
     assert (tmp_path / "first" / "profile" / "trace.json").exists()
+    # the profiled warm-up step's spans: no MC pass; its epoch gains their host ms
+    spans = json.loads((tmp_path / "first" / "profile" / "spans.json").read_text())
+    phases = ["clr.step.forward", "clr.step.losses", "clr.step.backward", "clr.step.update"]
+    assert [[s["name"] for s in step] for step in spans] == [["clr.step"] + phases]
+    assert all(s["step"] == 0 and s["end_ns"] > s["start_ns"] for s in spans[0])
+    host_ms = first.epoch_stats[0]["host_ms"]
+    assert set(host_ms) == {"clr.step", "self", *phases}
+    assert all(host_ms[p] > 0 for p in phases) and host_ms["self"] >= 0
     assert first.iteration == 0
     resumed = _run_cli(tmp_path, "second", _small_cfg(2), "--resume",
                        str(tmp_path / "first" / "checkpoints"))
     assert resumed.epoch_stats[0]["epoch"] == 1 and len(resumed.epoch_stats) == 1
+    assert "host_ms" not in resumed.epoch_stats[0]  # no profile window there
     assert resumed.iteration == ref.iteration == 1
     want = [_metric_cells(r) for r in _rows(out2)[1:] if r[0] == "1"]
     got = [_metric_cells(r) for r in _rows(tmp_path / "second")[1:]]

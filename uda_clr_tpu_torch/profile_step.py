@@ -96,10 +96,11 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # events that ran on the card (kernels, copies, memsets), by name
+    # events that ran on the card (kernels, copies, memsets), by name; not
+    # the annotations that mirror the step's spans there
     kernels: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             kernels[ev.name] = kernels.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     device_ms = sum(kernels.values())
     per_step = args.steps

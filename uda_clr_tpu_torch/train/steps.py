@@ -50,6 +50,15 @@ step does (steps.py:559). bf16: the batch is then cast to
 ``cfg.model.compute_dtype`` once; every conv
 casts its float32 weight to the activation dtype, norms reduce in float32,
 and losses run in float32 (explicit casts, no autocast).
+
+Spans (utils/tracing.py), recorded only while ``torch.profiler`` records:
+a call is ``clr.step``, and :func:`make_train_step`'s is cut into the
+consecutive phases ``clr.step.forward`` (decode, teacher, the S||T
+forward), ``clr.step.mc`` (the MC pass, where the step has one; the
+standalone pass sits between two forward phases), ``clr.step.losses``,
+``clr.step.backward`` (the generator's backward and gradient averaging)
+and ``clr.step.update`` (Adam, the discriminators' games, the bank
+commit, the teacher's EMA).
 """
 
 from __future__ import annotations
@@ -83,6 +92,7 @@ from uda_clr_tpu_torch.parallel.mesh import check_stripes, local_rows, local_str
 from uda_clr_tpu_torch.parallel.reduce import all_sum, average_grads, mean_metrics
 from uda_clr_tpu_torch.train import optim as optim_lib
 from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
+from uda_clr_tpu_torch.utils import tracing
 
 _CL = torch.channels_last
 MASK_HEAD_IMPLS = ("auto", "pallas", "xla")  # cfg.method.mask_head_impl
@@ -279,7 +289,7 @@ def make_bcdm_step(cfg: Config):
     w = BCDM_CDD_WEIGHT
 
     def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
-        with spatial.region():
+        with spatial.region(), tracing.span("clr.step", state.step):
             return _step(state, batch, lr_gen, lr_dis)
 
     def _step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float):
@@ -388,10 +398,11 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
     dt = cfg.model.dtype
 
     def step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch=0):
-        with spatial.region():
+        with spatial.region(), tracing.span("clr.step", state.step):
             return _step(state, batch, lr_gen, lr_dis, epoch)
 
     def _step(state: TrainState, batch: dict, lr_gen: float, lr_dis: float, epoch):
+        tracing.phase("clr.step.forward")
         batch = decode_batch(batch)  # uint8 wire batches -> float32
         _check_stripes(state.gen, batch["image_s"])
         gen, g = state.gen, state.generator
@@ -427,8 +438,10 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
 
         mc = None
         if use_mc and not mc_inline:
+            tracing.phase("clr.step.mc")
             mc = mc_dropout_forward(gen, image_t, mcfg.mc_samples, mcfg.mc_fast, g,
                                     step_seed, mcfg.mask_head_impl).float()
+            tracing.phase("clr.step.forward")
 
         # ---- one forward of the batch (S||T, or the source alone) ----
         with global_rows(None) if use_target else one_domain(b):
@@ -437,12 +450,14 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             outs = gen.heads_suffix(fp_all, ll_all, hw, True, domains, layers_lib.DropoutStream(
                 g, stream_seed(step_seed, _MAIN_FORWARD)))
         if mc_inline:
+            tracing.phase("clr.step.mc")
             mc = mc_suffix(gen, fp_all[b:].detach(), ll_all[b:].detach(), hw, b,
                            mcfg.mc_samples, g, step_seed,
                            mask_head_impl=mcfg.mask_head_impl).float()
         out_s, out_t = _split(outs, b) if use_target else (outs, None)
 
         # ---- generator loss ----
+        tracing.phase("clr.step.losses")
         o_s = out_s.mask_logits.float()
         b_s = out_s.boundary_logits.float()
         loss_seg = L.bce_sigmoid_stable(o_s, map_s)
@@ -535,11 +550,13 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
             metrics["loss_consistency"] = cons
 
         # ---- generator update (only G's parameters take gradients) ----
+        tracing.phase("clr.step.backward")
         optim_lib.set_lr(state.gen_opt, lr_gen)
         state.gen_opt.zero_grad(set_to_none=True)
         gen_params = [p for p in gen.parameters() if p.requires_grad]
         loss.backward(inputs=gen_params)
         average_grads(gen_params)
+        tracing.phase("clr.step.update")
         state.gen_opt.step()
         metrics["loss_all"] = loss
 

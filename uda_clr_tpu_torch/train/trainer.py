@@ -8,7 +8,10 @@ inside the step) and calls the step; the step's metrics stay 0-d device
 tensors until one host fetch per epoch, after which the NaN guard runs and
 the CSV and scalar rows are written. The host time blocked on the loaders
 is measured per epoch (``epoch_stats``), the evidence of whether the host
-feed sets the pace.
+feed sets the pace. ``run.profile`` traces one window of steps into
+``profile/trace.json``, the step's spans (utils/tracing.py) into
+``profile/spans.json``, and that epoch's stats gain ``host_ms``, the
+spans' host milliseconds per step by name.
 
 The disk-bank method (``prototype``) reads its bank from
 ``prototype_bank_path`` (the prototype-bank tool's ``.npz``, zeros without
@@ -47,6 +50,7 @@ An orbax checkpoint directory as ``initial_resume`` raises naming
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -69,6 +73,7 @@ from uda_clr_tpu_torch.train import checkpoint as ckpt_lib
 from uda_clr_tpu_torch.train import optim as optim_lib
 from uda_clr_tpu_torch.train.state import BANK_SIZES, create_train_state, replicate_state
 from uda_clr_tpu_torch.train.steps import make_eval_step, make_train_step
+from uda_clr_tpu_torch.utils import tracing
 from uda_clr_tpu_torch.utils.logging import CsvLogger, ScalarWriter, StepTimer
 from uda_clr_tpu_torch.utils.metrics import dice_coeff_2label, pixel_acc
 from uda_clr_tpu_torch.utils.ramps import get_current_consistency_weight
@@ -281,7 +286,7 @@ class Trainer:
             prof_stop = min(8, n_steps - 1)
         else:
             prof_start, prof_stop = -1, -1
-        prof = None
+        prof = host_ms = None
 
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -306,7 +311,7 @@ class Trainer:
                 prof = self._start_profile()
             self.state, metrics = step(self.state, batch, lr_gen, lr_dis, self.epoch)
             if batch_idx == prof_stop:
-                self._stop_profile(prof)
+                host_ms = self._stop_profile(prof)
                 prof = None
             viz = metrics.pop("_viz", None)
             if viz is not None and viz_every and self.iteration % viz_every == 0:
@@ -316,7 +321,7 @@ class Trainer:
             self.timer.add_images(batch_s["image"].shape[0] * self.n_data)  # the global batch
             batch_idx += 1
         if prof is not None:  # epoch shorter than the window
-            self._stop_profile(prof)
+            host_ms = self._stop_profile(prof)
 
         # one host fetch per epoch for all scalars
         rows = []
@@ -352,6 +357,8 @@ class Trainer:
         self.epoch_stats.append({"epoch": self.epoch, "proto_phase": proto_phase,
                                  "steps": len(rows), "seconds": dt, "img_per_s": ips,
                                  "loader_wait_s": wait, "peak_gib": peak})
+        if host_ms is not None:
+            self.epoch_stats[-1]["host_ms"] = host_ms
         self.writer.add_scalar("lr_gen", lr_gen, self.epoch * len(self.loader_s))
         print(
             f"[Epoch: {self.epoch}] lr:{lr_gen:.6f} "
@@ -399,16 +406,24 @@ class Trainer:
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
+        tracing.clear()
         prof.start()
         return prof
 
-    def _stop_profile(self, prof):
+    def _stop_profile(self, prof) -> dict:
+        """Ends the window: ``trace.json`` and the step's spans,
+        ``spans.json`` (one list of spans per step), under out_dir/profile;
+        returns the spans' host ms per step by name (tracing.summary)."""
         self._sync()  # drain the window
         prof.stop()
         out = os.path.join(self.cfg.run.out_dir, "profile")
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        recorded = tracing.steps()
+        with open(os.path.join(out, "spans.json"), "w") as f:
+            json.dump([[s._asdict() for s in step] for step in recorded], f)
         self._profiled = True
+        return tracing.summary(recorded)
 
     # ------------------------------------------------------------------
     def validate(self):
