@@ -16,7 +16,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    byte bound, shared memory per block and blocks per SM; K3, the fused dropout, forward and backward
    (channels_last input, NCHW-contiguous gradient) at the four dropout
    sites of the S||T forward at 512^2, B 8+8, in bf16, and at one float32
-   shape;
+   shape; K4, the norm, at the step's largest sites at 512^2, B 8+8 in
+   bf16 channels_last ([16, 96, 258, 258], [16, 305, 128, 128] and
+   [16, 256, 128, 128] split 8 | 8, the MC suffix's [64, 256, 128, 128] as
+   one group): y, dx, the parameters' gradients and the running stats
+   against the plain version in float32 on the same values, each pass
+   (moments, normalize, reduce, dx) timed beside its byte bound, the bf16
+   plain version's forward and backward, and ``F.batch_norm`` over each
+   half (``library_ms`` only: the port never calls it); and TransNorm at
+   [16, 256, 128, 128] split 8 | 8, with its four running buffers and K4's
+   ``a1`` against ``transfer_factor``, checked only;
 3. runs small train steps on the card and on the CPU from the same seed
    (float32, TF32 off, dropout off) and compares their metrics:
    ``prototype_full`` (warmup, then a prototype-phase step) under plain BN
@@ -57,8 +66,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 4. drives the flagship ``prototype_full`` step at full width (mobilenet
    DeepLabv3+ OS16, 512x512, 8 source + 8 target images, T=8 MC samples,
    bfloat16): one warmup step, then five prototype-phase steps, checking
-   finite losses, moving prototype banks and one K1 launch per
-   prototype-phase step;
+   finite losses, moving prototype banks, one K1 launch per
+   prototype-phase step and K4's launches per step against the
+   generator's norm sites (one moments and one normalize a site, one
+   reduce and one dx a site that takes a gradient, plus the MC suffix's 5
+   moments and 2 normalizes);
 5. drives ``prototype_mt`` at the same width under the fused dropout kernel
    (``set_dropout_impl('pallas')``): one warmup step, then five
    prototype-phase steps, asserting K1 and K3's launches per step;
@@ -165,7 +177,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 ``python3 chip_smoke.py --dp-only`` builds the kernels and runs step 16
 alone, ``--spatial-only`` step 17 alone (with its own one-process steps),
 ``--bench-only`` step 3b alone, ``--tools-only`` step 3c alone,
-``--longrun-only`` step 3d alone; none prints a result line.
+``--longrun-only`` step 3d alone, ``--norm-only`` K4's part of step 2
+alone; none prints a result line.
 
 It exits non-zero, with no result line, when there is no CUDA card, when
 the port's package is not beside it, or when any phase fails. float32
@@ -193,7 +206,20 @@ MAIN_SHAPE = (64, 128, 128)  # T*B rows of the MC pass at 512^2, B=8, T=8
 K3_SITES = (((16, 256, 32, 32), 0.5), ((16, 256, 128, 128), 0.5),
             ((16, 256, 128, 128), 0.1), ((16, 305, 128, 128), 0.1))
 K3_F32_SITE = ((16, 256, 128, 128), 0.5)
+# K4's sites (NCHW shape, images of the source group; None: one group)
+K4_SITES = (((16, 96, 258, 258), 8), ((16, 305, 128, 128), 8), ((16, 256, 128, 128), 8),
+            ((64, 256, 128, 128), None))
+# TransNorm's site (split 8 | 8), checked but not timed: its passes are
+# BN's, plus the one small launch of a1
+K4_TN_SITE = ((16, 256, 128, 128), 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# the launch counters a path reports: K1/K2 and K3, then K4's entries
+K13_KEYS = ("k1", "k2", "k3_fwd", "k3_bwd")
+K4_KEYS = ("k4_moments", "k4_fwd", "k4_reduce", "k4_dx")
+# K4's moments and normalize launches in a prototype-phase step beyond the
+# generator's norm sites: train/steps.py:mc_suffix's two batch_moments, one
+# batch_moments_parts of three tensors and two normalizes
+MC_SUFFIX_NORMS = (5, 2)
 KERNEL_WINDOWS, KERNEL_PER_WINDOW = 5, 20
 PLAIN_WINDOWS = 3
 PROTO_STEPS = 5
@@ -445,6 +471,139 @@ def dropout_phase(torch, F, K3):
     return totals
 
 
+def norm_site(torch, K4, shape, k, mode: str, g) -> tuple:
+    """One norm site in ``mode`` ('bn' or 'tn'), NCHW ``shape`` split at
+    ``k`` (None: one group): K4's forward and backward in bf16
+    channels_last against the plain version in float32 on the same values,
+    for y, dx, the affine's gradients, every running buffer and, under
+    TransNorm, K4's a1 against ``transfer_factor`` of the halves' plain
+    moments. Fails outside the tolerances; returns (x, the cotangent, the
+    two modules, the largest absolute error per output, the same over the
+    largest reference entry)."""
+    from uda_clr_tpu_torch.models.norm import DomainNorm2d, _moments, _unbias, transfer_factor
+
+    n, c = shape[:2]
+    x = (1.5 * torch.randn(shape, device="cuda", generator=g) + 0.4).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    cot = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    domains = 1 if k is None else 2
+    mods = []
+    for _ in range(2):
+        m = DomainNorm2d(c, mode=mode).cuda()
+        with torch.no_grad():
+            m.weight.copy_(1 + 0.2 * torch.randn(c, device="cuda", generator=g))
+            m.bias.copy_(0.2 * torch.randn(c, device="cuda", generator=g))
+        mods.append(m)
+    mods[1].load_state_dict(mods[0].state_dict())
+    out = []
+    for m, xi, ci, plain in ((mods[0], x, cot, False), (mods[1], x.float(), cot.float(), True)):
+        xi = xi.clone().requires_grad_()
+        y = (m.forward_plain if plain else m)(xi, True, domains)
+        y.backward(ci)
+        out.append({"y": y.detach().float(), "dx": xi.grad.float(), "dscale": m.weight.grad,
+                    "dbias": m.bias.grad, **{name: b.clone() for name, b in m.named_buffers()}})
+        del y, xi
+    if mode == "tn":
+        xf = x.float()
+        (mu_s, v_s, n_s), (mu_t, v_t, n_t) = _moments([xf[:k], xf[k:]], (0, 2, 3))
+        out[0]["a1"] = K4.tn_factor(K4.moments([(x, k)])[0], c, mods[0].eps)
+        out[1]["a1"] = transfer_factor(mu_s, v_s * _unbias(n_s), mu_t, v_t * _unbias(n_t),
+                                       mods[0].eps)
+        del xf
+    torch.cuda.synchronize()
+    abs_err, rel_err = {}, {}
+    for key, want in out[1].items():
+        err = (out[0][key] - want).abs()
+        top = float(want.abs().max())
+        abs_err[key] = float(err.max())
+        rel_err[key] = abs_err[key] / max(top, 1e-12)
+        if key in ("y", "dx"):  # one bf16 rounding plus float32 noise
+            ok = bool((err <= 2.0 ** -8 * want.abs() + 2e-5 * top).all())
+        else:  # float32 sums of the same bf16 values in another order
+            ok = rel_err[key] <= (1e-4 if key in ("dscale", "dbias") else 1e-5)
+        if not ok:
+            fail(f"K4 {mode} {key} at {list(shape)} split {k}: {abs_err[key]:.3e} "
+                 f"({rel_err[key]:.3e} of the largest entry)")
+    say(f"K4 {mode} {list(shape)} bf16 split {k}: within tolerance of the float32 plain "
+        f"version (largest error over the largest entry: "
+        f"{', '.join(f'{key} {e:.2e}' for key, e in rel_err.items())})")
+    return x, cot, mods, abs_err, rel_err
+
+
+def norm_phase(torch, F, K4):
+    """K4 against its plain version in float32 at :data:`K4_SITES` (BN) and
+    :data:`K4_TN_SITE` (bf16, channels_last); at the BN sites each pass
+    timed alone beside its byte bound. Returns each site's numbers and
+    their sums."""
+    g = torch.Generator("cuda").manual_seed(4)
+    rows = []
+    for shape, k in K4_SITES:
+        x, cot, mods, abs_err, rel_err = norm_site(torch, K4, shape, k, "bn", g)
+        c = shape[1]
+        domains = 1 if k is None else 2
+        # each pass alone: the moments, the normalize (EMA on), reduce, dx
+        xd, w, b = x.detach(), mods[0].weight.detach(), mods[0].bias.detach()
+        ema = [(mods[0].running_mean, mods[0].running_var)] * domains
+        stats = K4.moments([(xd, k)])[0]
+        with torch.no_grad():
+            y = K4.normalize(xd, stats, k, w, b, 1e-5, ema)
+        saved = torch.cat(K4.mean_var(stats, domains, c)[:2]).reshape(-1)
+        saved[domains * c:] = torch.rsqrt(saved[domains * c:] + 1e-5)
+        red = K4.reduce_launch(cot, xd, saved, k)
+        times = {
+            "moments": cuda_ms(lambda: K4.moments([(xd, k)]), KERNEL_WINDOWS, KERNEL_PER_WINDOW),
+            "forward": cuda_ms(lambda: K4.normalize(xd, stats, k, w, b, 1e-5),
+                               KERNEL_WINDOWS, KERNEL_PER_WINDOW),
+            "reduce": cuda_ms(lambda: K4.reduce_launch(cot, xd, saved, k),
+                              KERNEL_WINDOWS, KERNEL_PER_WINDOW),
+            "dx": cuda_ms(lambda: K4.dx_launch(cot, xd, saved, w, k, red, stats),
+                          KERNEL_WINDOWS, KERNEL_PER_WINDOW)}
+        nbytes = xd.numel() * xd.element_size()
+        bound = {key: f * nbytes / HBM_BYTES_PER_S * 1e3
+                 for key, f in (("moments", 1), ("forward", 2), ("reduce", 2), ("dx", 3))}
+        xg = xd.clone().requires_grad_()
+
+        def plain():
+            xg.grad = None
+            mods[1].forward_plain(xg, True, domains).backward(cot)
+
+        def library():
+            halves = (xg,) if k is None else (xg[:k], xg[k:])
+            xg.grad = None
+            torch.cat([F.batch_norm(h, None, None, mods[1].weight, mods[1].bias, True)
+                       for h in halves]).backward(cot)
+
+        plain_ms = cuda_ms(plain, PLAIN_WINDOWS, 1)
+        library_ms = cuda_ms(library, KERNEL_WINDOWS, 4)
+        ms = sum(times.values())
+        rows.append({"shape": list(shape), "k": k, "max_abs_err": abs_err,
+                     "max_rel_err": rel_err, "ms": times, "bound_ms": bound,
+                     "plain_ms": plain_ms, "library_ms": library_ms})
+        say(f"K4 {list(shape)} bf16 split {k}: "
+            + ", ".join(f"{key} {times[key]:.4f} ms ({100 * bound[key] / times[key]:.1f}% of "
+                        f"{bound[key]:.4f})" for key in times)
+            + f"; all {ms:.4f} ms against the bf16 plain version's {plain_ms:.3f} ms and "
+            f"F.batch_norm per half {library_ms:.4f} ms (forward and backward)")
+        del x, cot, xd, xg, y, stats, saved, red, mods
+        torch.cuda.empty_cache()
+    shape, k = K4_TN_SITE
+    _, _, _, tn_abs, tn_rel = norm_site(torch, K4, shape, k, "tn", g)
+    torch.cuda.empty_cache()
+    errs = [(r["max_abs_err"], r["max_rel_err"]) for r in rows] + [(tn_abs, tn_rel)]
+    totals = {"ms": sum(sum(r["ms"].values()) for r in rows),
+              "bound_ms": sum(sum(r["bound_ms"].values()) for r in rows),
+              "plain_ms": sum(r["plain_ms"] for r in rows),
+              "library_ms": sum(r["library_ms"] for r in rows),
+              "max_abs_err": max(max(a.values()) for a, _ in errs),
+              "max_rel_err": max(max(r.values()) for _, r in errs)}
+    say(json.dumps({"k4_sites": rows, "k4_tn_site": {"shape": list(shape), "k": k,
+                                                     "max_abs_err": tn_abs,
+                                                     "max_rel_err": tn_rel},
+                    "k4_totals": totals}))
+    return totals
+
+
 def small_batch(np, rng, b, size):
     return {
         "image_s": rng.standard_normal((b, size, size, 3)).astype(np.float32),
@@ -514,17 +673,32 @@ def full_width_cfg(Config):
 
 
 def reset_counts(mh, K3):
+    from uda_clr_tpu_torch.ops import domain_norm as K4
+
     mh.LAUNCHES = mh.LAUNCHES_BU = 0
     K3.LAUNCHES_FWD = K3.LAUNCHES_BWD = 0
+    K4.LAUNCHES_MOMENTS = K4.LAUNCHES_FWD = K4.LAUNCHES_REDUCE = K4.LAUNCHES_BWD = 0
 
 
 def counts(mh, K3):
-    return dict(k1=mh.LAUNCHES, k2=mh.LAUNCHES_BU, k3_fwd=K3.LAUNCHES_FWD, k3_bwd=K3.LAUNCHES_BWD)
+    """Every kernel's launches since :func:`reset_counts`: K1/K2, K3 and
+    K4's four entries (:data:`K4_KEYS`)."""
+    from uda_clr_tpu_torch.ops import domain_norm as K4
+
+    return dict(k1=mh.LAUNCHES, k2=mh.LAUNCHES_BU, k3_fwd=K3.LAUNCHES_FWD, k3_bwd=K3.LAUNCHES_BWD,
+                k4_moments=K4.LAUNCHES_MOMENTS, k4_fwd=K4.LAUNCHES_FWD,
+                k4_reduce=K4.LAUNCHES_REDUCE, k4_dx=K4.LAUNCHES_BWD)
+
+
+def same_counts(got: dict, want: dict) -> bool:
+    """Whether ``got`` holds ``want``'s counts (the keys ``want`` names)."""
+    return {k: got.get(k, 0) for k in want} == want
 
 
 def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: str = "",
                    steps: int = PROTO_STEPS, warmup: bool = True, configure=None,
-                   proto_bank=None, keys=None, banks_move: bool = True, info=None):
+                   proto_bank=None, keys=None, banks_move: bool = True, info=None,
+                   norm_suffix=None):
     """1 warmup (unless ``warmup`` is False) + ``steps`` prototype-phase
     steps of ``method`` at full width (``configure(cfg)`` edits the
     configuration; ``proto_bank`` seeds the disk bank of ``prototype``);
@@ -532,8 +706,13 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
     against ``per_step`` (launches per warmup / prototype-phase step), the
     metrics' names against ``keys`` when given, and the banks must move
     every step (unless ``banks_move`` is False: then it is only said).
-    Returns the path's launch counts and the median step ms (over steps 1
-    on: step 0 carries first-call costs); fills ``info`` (a dict) with the
+    With ``norm_suffix`` (the K4 moments and normalize launches a
+    prototype-phase step makes outside the generator's norm modules) K4's
+    launches are checked too: one moments launch per train-mode norm site
+    of the generator, one normalize per site, one reduce and one dx per
+    site whose output takes a gradient, counted by forward hooks. Returns
+    the path's launch counts and the median step ms (over steps 1 on: step
+    0 carries first-call costs); fills ``info`` (a dict) with the
     peak GiB, img/s, the warmup step's ms and metrics and the generator's
     backbone running stats after it."""
     Config, create_train_state, make_train_step, _ = ports
@@ -548,9 +727,28 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
     proto = make_train_step(cfg, method, proto_phase=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sites = {"all": 0, "train": 0, "grad": 0}
+    hooks = []
+    if norm_suffix:
+        from uda_clr_tpu_torch.models.norm import DomainNorm2d
+
+        def count_site(module, inputs, output):
+            sites["all"] += 1
+            sites["train"] += int(bool(inputs[1]))
+            sites["grad"] += int(output.requires_grad)
+
+        hooks = [m.register_forward_hook(count_site) for m in state.gen.modules()
+                 if isinstance(m, DomainNorm2d)]
+
+    def expect_norms(extra: tuple) -> None:
+        if norm_suffix:
+            for k, n in zip(K4_KEYS, (sites["train"] + extra[0], sites["all"] + extra[1],
+                                      sites["grad"], sites["grad"])):
+                expect[k] += n
+            sites.update(all=0, train=0, grad=0)
 
     reset_counts(mh, K3)  # counts from here on are this path's
-    expect = {k: 0 for k in counts(mh, K3)}
+    expect = dict.fromkeys(K13_KEYS + (K4_KEYS if norm_suffix else ()), 0)
     if warmup:
         t0 = time.perf_counter()
         state, m = warm(state, batch, 1e-3, 2.5e-5)
@@ -560,6 +758,7 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
         check_metrics(m, f"{name} warmup")
         for k, n in per_step["warmup"].items():
             expect[k] += n
+        expect_norms((0, 0))
         check_counts(mh, K3, expect, f"{name} warmup step")
         say(f"{name} warmup step: {warm_ms:.1f} ms (first step), {fmt(m)}")
         if info is not None:
@@ -581,6 +780,7 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
             fail(f"{name}: metrics {sorted(m)}, want {sorted(keys)}")
         for k, n in per_step["proto"].items():
             expect[k] += n
+        expect_norms(norm_suffix or (0, 0))
         check_counts(mh, K3, expect, f"{name} prototype step {i}")
         if method == "prototype":
             banks.append(torch.cat([state.proto_bank[k] for k in ("cup", "disc")]).clone())
@@ -589,6 +789,8 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
         say(f"{name} prototype step {i}: {step_ms[-1]:.1f} ms, {fmt(m)}")
     launches = counts(mh, K3)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    for h in hooks:
+        h.remove()
 
     if method != "prototype" and not (bool(state.proto_src_init) and bool(state.proto_trg_init)):
         fail(f"{name}: the prototype banks were never seeded")
@@ -884,7 +1086,7 @@ def other_methods_phase(torch, np, ports, mh, K3):
             if set(m) != want_keys:
                 fail(f"{method}: metrics {sorted(m)}, want {sorted(want_keys)}")
             say(f"{method} step {i}: {ms:.1f} ms, {fmt(m)}")
-        check_counts(mh, K3, {k: 0 for k in counts(mh, K3)}, method)
+        check_counts(mh, K3, dict.fromkeys(K13_KEYS, 0), method)
         del state, step
     torch.cuda.empty_cache()
 
@@ -958,9 +1160,9 @@ def trainer_phase(torch, trainer_ports, mh, K3, direct_ms: float) -> dict:
                     f"ms/step, the rest {1e3 * rest:.1f} ms/step")
             say(f"trainer {name}: {seconds:.1f} s in cli.main (datasets, model, training, "
                 f"validation, checkpoints); launches {launches}")
-            want = {k: 0 for k in launches}
+            want = dict.fromkeys(K13_KEYS, 0)
             want["k1"] = proto_steps
-            if launches != want:
+            if not same_counts(launches, want):
                 fail(f"trainer {name}: kernel launches {launches}, expected {want} "
                      f"(one K1 launch per prototype-phase step)")
             return trainer, out, launches
@@ -1028,8 +1230,8 @@ def cli_run(torch, trainer_ports, mh, K3, cfg, tmp: str, where: str, name: str, 
             f"{s['peak_gib']:.2f} GiB, loader wait "
             f"{1e3 * s['loader_wait_s'] / s['steps']:.1f} ms/step")
     say(f"{where} {name}: {time.perf_counter() - t0:.1f} s; launches {launches}")
-    if any(launches.values()):
-        fail(f"{where} {name}: kernel launches {launches}, expected none")
+    if any(launches[k] for k in K13_KEYS):
+        fail(f"{where} {name}: kernel launches {launches}, expected no K1 or K3")
     return trainer, before, start
 
 
@@ -1211,9 +1413,9 @@ def flagship_cli(torch, trainer_ports, mh, K3, tmp: str, name: str, max_epoch: i
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = counts(mh, K3)
-    want = {k: 0 for k in launches}
+    want = dict.fromkeys(K13_KEYS, 0)
     want["k1"] = sum(s["steps"] for s in trainer.epoch_stats if s["proto_phase"])
-    if device == "cuda" and launches != want:
+    if device == "cuda" and not same_counts(launches, want):
         fail(f"{name}: kernel launches {launches}, expected {want}")
     for s in trainer.epoch_stats:
         phase = "prototype phase" if s["proto_phase"] else "warmup"
@@ -1389,7 +1591,7 @@ def bench_phase(torch, mh, K3, batch_moments, card: str) -> dict:
                                                      "device_fraction")):
             fail(f"bench: host-fed row {key} {row}")
     expect = {"k1": BENCH_STEPS, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
-    if launches != expect:
+    if not same_counts(launches, expect):
         fail(f"bench: kernel launches {launches}, expected {expect} (one K1 per "
              f"prototype-phase step)")
     spread = (res["step_ms_windows"][-1] - res["step_ms_windows"][0]) / res["step_ms_median"]
@@ -1509,8 +1711,7 @@ def tools_phase(torch, mh, K3, card: str) -> dict:
         + " img/s; host-fed " + ", ".join(f"{r['workers']} workers {r['step_ms']} ms"
                                           for r in e2e)
         + f"; seconds per tool {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
-    return {k: sum(launches[name][k] for name in launches) for k in ("k1", "k2", "k3_fwd",
-                                                                     "k3_bwd")}
+    return {k: sum(launches[name][k] for name in launches) for k in K13_KEYS + K4_KEYS}
 
 
 def read_rows(path: str, prefix: str, keys) -> list:
@@ -1538,7 +1739,7 @@ def longrun_phase(torch, mh, K3, card: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_longrun_")
     keys = longrun.FAMILY["prototype_full"].keys
     cores = str(os.cpu_count() or 1)
-    total = {"k1": 0, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
+    total = dict.fromkeys(K13_KEYS + K4_KEYS, 0)
     try:
         reset_counts(mh, K3)
         t0 = time.perf_counter()
@@ -1550,8 +1751,8 @@ def longrun_phase(torch, mh, K3, card: str) -> dict:
         got = counts(mh, K3)
         want = {"k1": 2 * LONGRUN_SMALL_ITERS, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
         runs = small["runs"]
-        if got != want or [runs[r]["launches"]["k1"] for r in ("port", "cpu", "chaos")] != \
-                [LONGRUN_SMALL_ITERS, 0, LONGRUN_SMALL_ITERS]:
+        per_run = [runs[r]["launches"]["k1"] for r in ("port", "cpu", "chaos")]
+        if not same_counts(got, want) or per_run != [LONGRUN_SMALL_ITERS, 0, LONGRUN_SMALL_ITERS]:
             fail(f"longrun (a): launches {got}, per run "
                  f"{ {r: v['launches'] for r, v in runs.items()} }, expected one K1 per "
                  f"prototype-phase iteration on the card")
@@ -1586,7 +1787,7 @@ def longrun_phase(torch, mh, K3, card: str) -> dict:
         got = counts(mh, K3)
         want = {"k1": LONGRUN_BF16_ITERS + 3 * LONGRUN_F32_ITERS, "k2": 0, "k3_fwd": 0,
                 "k3_bwd": 0}
-        if got != want:
+        if not same_counts(got, want):
             fail(f"longrun (b): launches {got}, expected {want} (one K1 per iteration)")
         for name, res in (("bf16", bf16), ("float32", f32)):
             first, last = res["runs"]["port"]["loss_all_windows"]
@@ -2073,7 +2274,7 @@ def dp_trainer_phase(build_config, headers, tmp: str, world: int = DP_WORLD, mes
     ranks for a third. Returns the launches and the ranks' step ms and
     loader wait of the prototype-phase epochs."""
     run = os.path.join(tmp, f"{what}_run")
-    total = {"k1": 0, "k2": 0, "k3_fwd": 0, "k3_bwd": 0}
+    total = dict.fromkeys(K13_KEYS + K4_KEYS, 0)
     stats = []
     runs = [(2, [])] + ([(3, ["--resume", os.path.join(run, "checkpoints")])] if resume else [])
     for max_epoch, extra in runs:
@@ -2092,10 +2293,11 @@ def dp_trainer_phase(build_config, headers, tmp: str, world: int = DP_WORLD, mes
             if [e["epoch"] for e in epochs] != want_epochs:
                 fail(f"{where}: rank {r} trained epochs {[e['epoch'] for e in epochs]}")
             proto_steps = sum(e["steps"] for e in epochs if e["proto_phase"])
-            if s["launches"] != {"k1": proto_steps, "k3_fwd": 0, "k3_bwd": 0}:
+            if not same_counts(s["launches"], {"k1": proto_steps, "k3_fwd": 0, "k3_bwd": 0}):
                 fail(f"{where}: rank {r} launches {s['launches']}, want one K1 launch per "
                      f"prototype-phase step ({proto_steps})")
-            total["k1"] += s["launches"]["k1"]
+            for k in total:
+                total[k] += s["launches"].get(k, 0)
             for e in epochs:
                 phase = "prototype phase" if e["proto_phase"] else "warmup"
                 say(f"{where} rank {r} epoch {e['epoch']} ({phase}): wall "
@@ -2162,7 +2364,7 @@ def dp_phase(torch, np, ports, build_config, headers, flagship_ms: float, card: 
                                      for n in ("bn", "tn", "baseline-tn")] \
             + [r[part] for r in ranks for part in ("flagship", "pallas")]
         launches = {k: sum(run["launches"][k] for run in runs) + trainer["launches"][k]
-                    for k in ("k1", "k2", "k3_fwd", "k3_bwd")}
+                    for k in K13_KEYS + K4_KEYS}
         rank_ms = [r["flagship"]["ms"] for r in ranks]
         beside = "not measured in this run" if flagship_ms is None else (
             f"{flagship_ms:.2f} ms for 8 + 8 ({8 / (flagship_ms / 1e3):.2f} img/s)")
@@ -2240,7 +2442,7 @@ def spatial_phase(torch, np, ports, build_config, headers, card: str, single=Non
                 f"{st['rank']}: {st['ms']:.1f} ms/step, loader wait {st['wait_ms']:.1f} ms/step, "
                 f"peak {st['peak_gib']:.2f} GiB ({card})")
         launches = {k: sum(run["launches"][k] for run in runs) + trainer["launches"][k]
-                    for k in ("k1", "k2", "k3_fwd", "k3_bwd")}
+                    for k in K13_KEYS + K4_KEYS}
         say(f"spatial phase launches (all ranks): {launches}; "
             f"{time.perf_counter() - t_phase:.1f} s")
         return launches
@@ -2249,8 +2451,11 @@ def spatial_phase(torch, np, ports, build_config, headers, card: str, single=Non
 
 
 def check_counts(mh, K3, expect: dict, where: str) -> None:
+    """Fail unless the launches equal ``expect`` on its keys, which name
+    K1/K2 and K3 always and K4's entries where the path knows its norm
+    sites."""
     got = counts(mh, K3)
-    if got != expect:
+    if not set(K13_KEYS) <= set(expect) or not same_counts(got, expect):
         fail(f"{where}: kernel launches {got}, expected {expect}")
 
 
@@ -2299,6 +2504,7 @@ def main() -> None:
         from uda_clr_tpu_torch.models.deeplab import DeepLab
         from uda_clr_tpu_torch.models.norm import DomainNorm2d, batch_moments
         from uda_clr_tpu_torch.ops import cuda_build
+        from uda_clr_tpu_torch.ops import domain_norm as K4
         from uda_clr_tpu_torch.ops import dropout as K3
         from uda_clr_tpu_torch.ops import mask_head as mh
         from uda_clr_tpu_torch.tools import cal_prototype, evaluate, export
@@ -2318,7 +2524,7 @@ def main() -> None:
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libraries = (mh.LIBRARY, K3.LIBRARY, native.LIBRARY)
+    libraries = (mh.LIBRARY, K3.LIBRARY, K4.LIBRARY, native.LIBRARY)
     cuda_build.build_all(libraries)
     say(f"build: {time.perf_counter() - t0:.1f} s for "
         f"{', '.join(lib.source.name for lib in libraries)} (nvcc for sm_90a and g++ "
@@ -2344,12 +2550,17 @@ def main() -> None:
         tools_phase(torch, mh, K3, card)
         say("chip_smoke --tools-only: the tools phase passed")
         return
+    if "--norm-only" in sys.argv[1:]:
+        norm_phase(torch, F, K4)
+        say("chip_smoke --norm-only: the K4 phase passed")
+        return
     if "--longrun-only" in sys.argv[1:]:
         longrun_phase(torch, mh, K3, card)
         say("chip_smoke --longrun-only: the long-horizon phase passed")
         return
     mask_numbers = kernel_phase(torch, mh, batch_moments, kernel_seed)
     k3_numbers = dropout_phase(torch, F, K3)
+    k4_numbers = norm_phase(torch, F, K4)
     small_parity_phase(torch, np, ports)
     benched = bench_phase(torch, mh, K3, batch_moments, card)
     tooled = tools_phase(torch, mh, K3, card)
@@ -2357,7 +2568,7 @@ def main() -> None:
 
     # the flagship path: K1 once per prototype-phase step, no K3 under 'xla16'
     flagship, flagship_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
-        "warmup": {}, "proto": {"k1": 1}})
+        "warmup": {}, "proto": {"k1": 1}}, norm_suffix=MC_SUFFIX_NORMS)
     # the paper's full method under the fused dropout kernel
     sites = K3_SITES_PER_FORWARD
     layers.set_dropout_impl("pallas")
@@ -2480,6 +2691,11 @@ def main() -> None:
             launched["k3_fwd"], k3_numbers["fwd"], k3_numbers["fwd"]["library_ms"]),
         row("dropout_backward", drop_src, "uda_clr_tpu/ops/pallas/dropout.py:70",
             launched["k3_bwd"], k3_numbers["bwd"], k3_numbers["bwd"]["library_ms"]),
+        # K4: its four passes summed over K4_SITES; no Pallas kernel (XLA
+        # fused the norm)
+        {**row("domain_norm", "uda_clr_tpu_torch/csrc/domain_norm.cu", None,
+               {k[3:]: launched[k] for k in K4_KEYS}, k4_numbers, k4_numbers["library_ms"]),
+         "max_rel_err": k4_numbers["max_rel_err"]},
     ]
     say(json.dumps({"kernels": kernels}))
     say(card)

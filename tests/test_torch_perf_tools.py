@@ -87,13 +87,16 @@ def test_conv_and_its_backward():
 
 
 def test_kernel_work_from_counters():
-    before = dict.fromkeys(("k1", "rows", "k3_fwd", "k3_bwd", "k3_bytes"), 0)
-    after = {**before, "k1": 1, "rows": 1048576, "k3_fwd": 2, "k3_bwd": 1, "k3_bytes": 600}
+    before = dict.fromkeys(("k1", "rows", "k3_fwd", "k3_bwd", "k3_bytes", "k4", "k4_bytes"), 0)
+    after = {**before, "k1": 1, "rows": 1048576, "k3_fwd": 2, "k3_bwd": 1, "k3_bytes": 600,
+             "k4": 4, "k4_bytes": 900}
     work = opcount.kernel_work(before, after, torch.bfloat16)
     k1 = work["K1 mask_head_split"]
     assert k1["launches"] == 1 and round(k1["bytes"] / 1e6, 1) == 643.8
     assert round(k1["flops"] / 1e9, 2) == 1.28
     assert work["K3 dropout"] == {"launches": 3, "bytes": 600, "flops": 0}
+    assert work["K4 domain_norm"] == {"launches": 4, "bytes": 900, "flops": 0}
+    assert set(opcount.kernel_counts()) == set(before)
     assert opcount.kernel_work(before, before, torch.bfloat16) == {}
 
 

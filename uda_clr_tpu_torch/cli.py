@@ -161,7 +161,7 @@ def main(argv=None):
     """Build the config, train, and return the Trainer (its
     ``epoch_stats`` hold each epoch's time, throughput and loader wait)."""
     args = _parser().parse_args(argv)
-    from uda_clr_tpu_torch.ops import dropout, mask_head
+    from uda_clr_tpu_torch.ops import domain_norm, dropout, mask_head
     from uda_clr_tpu_torch.parallel import distributed as dist_lib
     from uda_clr_tpu_torch.train.trainer import Trainer
 
@@ -173,7 +173,11 @@ def main(argv=None):
                 "rank": trainer.rank, "world": trainer.world, "epochs": trainer.epoch_stats,
                 "replica_gap": trainer.replica_gap,
                 "launches": {"k1": mask_head.LAUNCHES, "k3_fwd": dropout.LAUNCHES_FWD,
-                             "k3_bwd": dropout.LAUNCHES_BWD}}), flush=True)
+                             "k3_bwd": dropout.LAUNCHES_BWD,
+                             "k4_moments": domain_norm.LAUNCHES_MOMENTS,
+                             "k4_fwd": domain_norm.LAUNCHES_FWD,
+                             "k4_reduce": domain_norm.LAUNCHES_REDUCE,
+                             "k4_dx": domain_norm.LAUNCHES_BWD}}), flush=True)
     finally:
         dist_lib.shutdown()
     return trainer

@@ -34,6 +34,14 @@ each channel by the detached transferability factor ``a1 = 1 + C p / sum(p)``,
   normalizes with its own batch moments times 2 and writes no stats;
 * eval mode normalizes with the target running stats, a1 from the running
   stats.
+
+On a CUDA tensor every path runs the hand-written kernel K4
+(ops/domain_norm.py): one moments and one normalize launch a site forward
+(the EMA in the normalize's epilogue), a reduce and a dx launch backward;
+TransNorm's ``a1`` is one more small launch from the moments; the affine's
+``scale * a1``, ``bias * a1`` and ``domains=0``'s x2 stay C-sized torch
+ops in front of the normalize, so autograd carries their gradients. The
+op-by-op code here is the kernel's plain version, which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import math
 import torch
 import torch.nn as nn
 
+from uda_clr_tpu_torch.ops import domain_norm as K4
 from uda_clr_tpu_torch.parallel import spatial
 from uda_clr_tpu_torch.parallel.distributed import world_size
 from uda_clr_tpu_torch.parallel.reduce import all_sum
@@ -117,7 +126,22 @@ def _moments(xs, dims,
 
 def batch_moments_parts(xs, dims) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """float32 mean and biased variance of each tensor in ``xs`` over
-    ``dims``, over the global batch (:func:`_moments`)."""
+    ``dims``, over the global batch (:func:`_moments`; on CUDA 4-D tensors
+    reduced over all but one dimension, K4's moments, that dimension taken
+    as the channels)."""
+    if K4.launches_on(xs[0]):
+        reduced = sorted(d % 4 for d in dims)
+        if xs[0].dim() != 4 or len(dims) != 3 or len(set(reduced)) != 3:
+            raise ValueError(f"the norm kernel reduces a 4-D tensor over three dimensions, "
+                             f"not {tuple(dims)} of {xs[0].dim()}")
+        # the kept dimension second, as the kernel's channels
+        (keep,) = set(range(4)) - set(reduced)
+        xs = [x.permute(reduced[0], keep, *reduced[1:]) for x in xs]
+        out = []
+        for x, stats in zip(xs, K4.moments([(x, None) for x in xs])):
+            mean, var, _ = K4.mean_var(stats, 1, x.shape[1])
+            out.append((mean[0], var[0]))
+        return out
     return [(mean, var) for mean, var, _ in _moments(xs, dims)]
 
 
@@ -134,6 +158,14 @@ def _unbias(n):
 
 
 def normalize(x, mean, var, scale, bias, eps: float = 1e-5):
+    """:func:`normalize_plain`; on a CUDA [N, C, H, W] tensor with [C]
+    vectors, K4's normalize with the statistics as constants."""
+    if K4.launches_on(x):
+        return K4.normalize_fixed(x, mean, var, scale, bias, eps)
+    return normalize_plain(x, mean, var, scale, bias, eps)
+
+
+def normalize_plain(x, mean, var, scale, bias, eps: float = 1e-5):
     """``(x - mean) * (rsqrt(var+eps)*scale) + bias`` in x.dtype; the
     [..., C] vectors broadcast over NCHW."""
     dt = x.dtype
@@ -193,8 +225,7 @@ class DomainNorm2d(nn.Module):
             return
         m = self.momentum
         unbias = _unbias(n)
-        sfx = f"_{domain}" if domain else ""
-        r_mean, r_var = getattr(self, "running_mean" + sfx), getattr(self, "running_var" + sfx)
+        r_mean, r_var = self._running(domain)
         r_mean.copy_((1.0 - m) * r_mean + m * mean)
         r_var.copy_((1.0 - m) * r_var + m * (var * unbias))
 
@@ -203,31 +234,23 @@ class DomainNorm2d(nn.Module):
         if not train:
             a1 = transfer_factor(self.running_mean_source, self.running_var_source,
                                  self.running_mean_target, self.running_var_target, eps)
-            return normalize(x, self.running_mean_target, self.running_var_target,
-                             scale * a1, bias * a1, eps)
+            return normalize_plain(x, self.running_mean_target, self.running_var_target,
+                                   scale * a1, bias * a1, eps)
         if domains == 0:
-            mu, v = batch_moments(x, (0, 2, 3))
-            return normalize(x, mu, v, scale * 2.0, bias * 2.0, eps)
+            mu, v, _ = _moments([x], (0, 2, 3))[0]
+            return normalize_plain(x, mu, v, scale * 2.0, bias * 2.0, eps)
+        k = self._tn_split(x)
+        if k is not None:
+            return self._forward_tn_split(x, k)
         b = x.shape[0] // 2
-        if _ROWS is not None and world_size() > 1:
-            # a shard of a one-domain batch: the rows before the global
-            # batch's middle are source, the others target
-            index, total = _ROWS
-            if len(index) != x.shape[0]:
-                raise ValueError(f"TransNorm: a layout of {len(index)} rows for a batch of "
-                                 f"{x.shape[0]}")
-            return self._forward_tn_split(x, sum(i < total // 2 for i in index))
-        if x.shape[0] % 2:
-            # the reference's uneven b//2 split (batchnorm.py:439-442)
-            return self._forward_tn_split(x, b)
         x2 = x.unflatten(0, (2, b))  # [2, b, C, H, W]
         mu2, v2, n = _moments([x2], (1, 3, 4))[0]  # [2, C]; n per half, global
         self._ema(mu2[0].detach(), v2[0].detach(), n, "source")
         self._ema(mu2[1].detach(), v2[1].detach(), n, "target")
         vu = v2.detach() * _unbias(n)
         a1 = transfer_factor(mu2[0].detach(), vu[0], mu2[1].detach(), vu[1], eps)
-        z = normalize(x2, mu2[:, None, :], v2[:, None, :], (scale * a1).expand(2, 1, -1),
-                      bias * a1, eps)
+        z = normalize_plain(x2, mu2[:, None, :], v2[:, None, :], (scale * a1).expand(2, 1, -1),
+                            bias * a1, eps)
         return z.flatten(0, 1)
 
     def _forward_tn_split(self, x: torch.Tensor, k: int) -> torch.Tensor:
@@ -242,27 +265,85 @@ class DomainNorm2d(nn.Module):
         (mu_s, v_s, n_s), (mu_t, v_t, n_t) = moments
         a1 = transfer_factor(mu_s.detach(), v_s.detach() * _unbias(n_s),
                              mu_t.detach(), v_t.detach() * _unbias(n_t), eps)
-        return torch.cat([normalize(h, mu, v, scale * a1, bias * a1, eps)
+        return torch.cat([normalize_plain(h, mu, v, scale * a1, bias * a1, eps)
                           for h, (mu, v, _) in zip(halves, moments)], dim=0)
 
+    @staticmethod
+    def _tn_split(x: torch.Tensor) -> int | None:
+        """Train-mode TransNorm's uneven split of ``x``'s rows, or None for
+        the even halves."""
+        if _ROWS is not None and world_size() > 1:
+            # a shard of a one-domain batch: the rows before the global
+            # batch's middle are source, the others target
+            index, total = _ROWS
+            if len(index) != x.shape[0]:
+                raise ValueError(f"TransNorm: a layout of {len(index)} rows for a batch of "
+                                 f"{x.shape[0]}")
+            return sum(i < total // 2 for i in index)
+        if x.shape[0] % 2:
+            # the reference's uneven b//2 split (batchnorm.py:439-442)
+            return x.shape[0] // 2
+        return None
+
+    def _running(self, domain: str = "") -> tuple[torch.Tensor, torch.Tensor]:
+        """The running (mean, var) buffers (``domain`` 'source'/'target'
+        for TN)."""
+        sfx = f"_{domain}" if domain else ""
+        return getattr(self, "running_mean" + sfx), getattr(self, "running_var" + sfx)
+
+    def _forward_kernel(self, x: torch.Tensor, train: bool, domains: int) -> torch.Tensor:
+        """Every mode of :meth:`forward_plain` through K4: the same
+        statistics, splits, EMA order and affine."""
+        scale, bias, eps = self.weight, self.bias, self.eps
+        if self.mode == "bn":
+            if not train:
+                return K4.normalize_fixed(x, self.running_mean, self.running_var, scale, bias, eps)
+            k = None
+            if domains > 1:
+                if x.shape[0] % 2:
+                    raise ValueError(f"domains=2 splits an even batch, got {x.shape[0]}")
+                k = x.shape[0] // 2
+            stats = K4.moments([(x, k)])[0]
+            # two halves write the one pair of buffers: the target half first
+            ema = [self._running()] * (1 if k is None else 2) if self.update_stats else None
+            return K4.normalize(x, stats, k, scale, bias, eps, ema, self.momentum)
+        if not train:
+            a1 = transfer_factor(*self._running("source"), *self._running("target"), eps)
+            return K4.normalize_fixed(x, *self._running("target"), scale * a1, bias * a1, eps)
+        if domains == 0:
+            stats = K4.moments([(x, None)])[0]
+            return K4.normalize(x, stats, None, scale * 2.0, bias * 2.0, eps)
+        k = self._tn_split(x)
+        k = x.shape[0] // 2 if k is None else k
+        stats = K4.moments([(x, k)])[0]
+        a1 = K4.tn_factor(stats, x.shape[1], eps)
+        ema = [self._running("source"), self._running("target")] if self.update_stats else None
+        return K4.normalize(x, stats, k, scale * a1, bias * a1, eps, ema, self.momentum)
+
     def forward(self, x: torch.Tensor, train: bool, domains: int = 1) -> torch.Tensor:
+        if K4.launches_on(x):
+            return self._forward_kernel(x, train, domains)
+        return self.forward_plain(x, train, domains)
+
+    def forward_plain(self, x: torch.Tensor, train: bool, domains: int = 1) -> torch.Tensor:
+        """The op-by-op norm (K4's plain version), on any device."""
         if self.mode == "tn":
             return self._forward_tn(x, train, domains)
         if not train:
-            return normalize(x, self.running_mean, self.running_var,
-                             self.weight, self.bias, self.eps)
+            return normalize_plain(x, self.running_mean, self.running_var,
+                                   self.weight, self.bias, self.eps)
         if domains <= 1:
             mu, v, n = _moments([x], (0, 2, 3))[0]
             self._ema(mu.detach(), v.detach(), n)
-            return normalize(x, mu, v, self.weight, self.bias, self.eps)
+            return normalize_plain(x, mu, v, self.weight, self.bias, self.eps)
         b = x.shape[0] // 2
         x2 = x.unflatten(0, (2, b))  # [2, b, C, H, W]
         mu2, v2, n = _moments([x2], (1, 3, 4))[0]  # [2, C]; n per half, global
         self._ema(mu2[1].detach(), v2[1].detach(), n)
         self._ema(mu2[0].detach(), v2[0].detach(), n)
         scale = self.weight.expand(2, -1)
-        z = normalize(x2, mu2[:, None, :], v2[:, None, :], scale[:, None, :],
-                      self.bias, self.eps)
+        z = normalize_plain(x2, mu2[:, None, :], v2[:, None, :], scale[:, None, :],
+                            self.bias, self.eps)
         return z.flatten(0, 1)
 
 

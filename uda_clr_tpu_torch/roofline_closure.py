@@ -13,8 +13,9 @@ profiler range around it) and under ``count_flops``:
 
 1. **Work per op.** The dispatcher's aten ops, keyed by name and input
    shapes; bytes and flops as ``utils/opcount.py`` counts them. The kernels
-   launched through ctypes (K1, and K3 under ``'pallas'``) come from their
-   counters, with their byte and flop formulas.
+   launched through ctypes (K1, K4 on every norm site, and K3 under
+   ``'pallas'``) come from their counters, with their byte and flop
+   formulas; ``TorchDispatchMode`` sees none of them.
 2. **Time per op.** Every device kernel, copy and memset of the trace is
    joined to the op range its launch falls in (the chrome trace's
    correlation of launch and kernel); a hand-written kernel launched
@@ -63,7 +64,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 # hand-written kernels launched outside any op range: row name by a
 # fragment of the CUDA kernel's name (csrc/*.cu)
-KERNEL_ROWS = (("mask_head_kernel", "K1 mask_head_split"), ("dropout_kernel", "K3 dropout"))
+KERNEL_ROWS = (("mask_head_kernel", "K1 mask_head_split"), ("dropout_kernel", "K3 dropout"),
+               ("domain_norm", "K4 domain_norm"))
 UNATTRIBUTED = "(launched outside any op range)"
 TIME_RTOL = 0.01  # the per-op device ms against the trace's total
 SHARE_MAX = 1.05  # a share above 1 means the work model undercounts

@@ -141,11 +141,15 @@ class OpCounter(TorchDispatchMode):
 
 def kernel_counts() -> dict:
     """The hand-written kernels' counters now (ops/mask_head.py,
-    ops/dropout.py); :func:`kernel_work` takes two readings' difference."""
-    from uda_clr_tpu_torch.ops import dropout, mask_head
+    ops/dropout.py, ops/domain_norm.py); :func:`kernel_work` takes two
+    readings' difference."""
+    from uda_clr_tpu_torch.ops import domain_norm, dropout, mask_head
 
     return {"k1": mask_head.LAUNCHES, "rows": mask_head.ROWS, "k3_fwd": dropout.LAUNCHES_FWD,
-            "k3_bwd": dropout.LAUNCHES_BWD, "k3_bytes": dropout.BYTES}
+            "k3_bwd": dropout.LAUNCHES_BWD, "k3_bytes": dropout.BYTES,
+            "k4": (domain_norm.LAUNCHES_MOMENTS + domain_norm.LAUNCHES_FWD
+                   + domain_norm.LAUNCHES_REDUCE + domain_norm.LAUNCHES_BWD),
+            "k4_bytes": domain_norm.BYTES}
 
 
 def kernel_work(before: dict, after: dict, dtype: torch.dtype) -> dict:
@@ -154,8 +158,10 @@ def kernel_work(before: dict, after: dict, dtype: torch.dtype) -> dict:
     rows at ``dtype``: ``MASK_HEAD_ELEMS_PER_ROW`` elements and
     ``MASK_HEAD_FLOPS_PER_ROW`` flops each; 643.8 MB and 1.28 GFLOP per
     launch at 1,048,576 bf16 rows; K2, which shares the rows' counter, is
-    on no train path) and the dropout kernel K3 (each launch reads its
-    input and writes its output once)."""
+    on no train path), the dropout kernel K3 (each launch reads its
+    input and writes its output once) and the norm kernel K4 (its four
+    entries' byte bounds: the moments read x, the forward reads x and
+    writes y, the reduce reads dy and x, dx reads both and writes dx)."""
     d = {k: after[k] - before[k] for k in after}
     itemsize = torch.empty((), dtype=dtype).element_size()
     out = {}
@@ -166,4 +172,6 @@ def kernel_work(before: dict, after: dict, dtype: torch.dtype) -> dict:
     k3 = d["k3_fwd"] + d["k3_bwd"]
     if k3:
         out["K3 dropout"] = {"launches": k3, "bytes": d["k3_bytes"], "flops": 0}
+    if d["k4"]:
+        out["K4 domain_norm"] = {"launches": d["k4"], "bytes": d["k4_bytes"], "flops": 0}
     return out
