@@ -209,6 +209,10 @@ K3_F32_SITE = ((16, 256, 128, 128), 0.5)
 # K4's sites (NCHW shape, images of the source group; None: one group)
 K4_SITES = (((16, 96, 258, 258), 8), ((16, 305, 128, 128), 8), ((16, 256, 128, 128), 8),
             ((64, 256, 128, 128), None))
+# Aligned Xception-65's eleven distinct site shapes at 512^2, B 8+8 (split 8 | 8)
+K4_XCEPTION_SITES = tuple(((16, c, hw, hw), 8) for c, hw in (
+    (32, 256), (64, 256), (128, 256), (128, 128), (256, 128), (256, 64), (728, 64),
+    (728, 32), (1024, 32), (1536, 32), (2048, 32)))
 # TransNorm's site (split 8 | 8), checked but not timed: its passes are
 # BN's, plus the one small launch of a1
 K4_TN_SITE = ((16, 256, 128, 128), 8)
@@ -532,13 +536,13 @@ def norm_site(torch, K4, shape, k, mode: str, g) -> tuple:
 
 
 def norm_phase(torch, F, K4):
-    """K4 against its plain version in float32 at :data:`K4_SITES` (BN) and
-    :data:`K4_TN_SITE` (bf16, channels_last); at the BN sites each pass
-    timed alone beside its byte bound. Returns each site's numbers and
-    their sums."""
+    """K4 against its plain version in float32 at :data:`K4_SITES` and
+    :data:`K4_XCEPTION_SITES` (BN) and :data:`K4_TN_SITE` (bf16,
+    channels_last); at the BN sites each pass timed alone beside its byte
+    bound. Returns each site's numbers and their sums."""
     g = torch.Generator("cuda").manual_seed(4)
     rows = []
-    for shape, k in K4_SITES:
+    for shape, k in K4_SITES + K4_XCEPTION_SITES:
         x, cot, mods, abs_err, rel_err = norm_site(torch, K4, shape, k, "bn", g)
         c = shape[1]
         domains = 1 if k is None else 2
@@ -591,10 +595,11 @@ def norm_phase(torch, F, K4):
     _, _, _, tn_abs, tn_rel = norm_site(torch, K4, shape, k, "tn", g)
     torch.cuda.empty_cache()
     errs = [(r["max_abs_err"], r["max_rel_err"]) for r in rows] + [(tn_abs, tn_rel)]
-    totals = {"ms": sum(sum(r["ms"].values()) for r in rows),
-              "bound_ms": sum(sum(r["bound_ms"].values()) for r in rows),
-              "plain_ms": sum(r["plain_ms"] for r in rows),
-              "library_ms": sum(r["library_ms"] for r in rows),
+    flagship = rows[:len(K4_SITES)]  # the sums stay K4_SITES' alone
+    totals = {"ms": sum(sum(r["ms"].values()) for r in flagship),
+              "bound_ms": sum(sum(r["bound_ms"].values()) for r in flagship),
+              "plain_ms": sum(r["plain_ms"] for r in flagship),
+              "library_ms": sum(r["library_ms"] for r in flagship),
               "max_abs_err": max(max(a.values()) for a, _ in errs),
               "max_rel_err": max(max(r.values()) for _, r in errs)}
     say(json.dumps({"k4_sites": rows, "k4_tn_site": {"shape": list(shape), "k": k,

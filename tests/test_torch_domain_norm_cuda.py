@@ -124,6 +124,18 @@ def test_the_steps_largest_sites(card, shape, domains):
     torch.cuda.empty_cache()
 
 
+@pytest.mark.parametrize("shape", [(16, c, 256, 256) for c in (32, 64, 128)]
+                         + [(16, c, 128, 128) for c in (128, 256)]
+                         + [(16, c, 64, 64) for c in (256, 728)]
+                         + [(16, c, 32, 32) for c in (728, 1024, 1536, 2048)])
+def test_xceptions_sites(card, shape):
+    """The eleven distinct norm-site shapes of Aligned Xception-65 at
+    512^2, B 8+8, in bf16 channels_last, split 8 | 8."""
+    n, c, h, w = shape
+    _case(card, "bn", n, c, (h, w), True, 2, torch.bfloat16, True)
+    torch.cuda.empty_cache()
+
+
 def test_moments_repeat_bit_for_bit(card):
     """The two-level reduction has a fixed order: the same input gives the
     same sums, and they equal float64 sums within float32 round-off."""

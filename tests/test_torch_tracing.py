@@ -1,8 +1,10 @@
 """The port's spans (uda_clr_tpu_torch/utils/tracing.py) in its train step
 (train/steps.py), on the CPU at 64^2, B 2: none recorded without the
 profiler; under it one ``clr.step`` per call with its consecutive phases
-in order, on the profiler's own clock; no MC phase in a warm-up step; and
-a step that computes the same bits with spans on and off."""
+in order, on the profiler's own clock, and a ``clr.backbone`` span inside
+a phase for each backbone call (models/deeplab.py), cut into Xception's
+three phases on that backbone; no MC phase in a warm-up step; and a step
+that computes the same bits with spans on and off."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,11 @@ from uda_clr_tpu_torch.utils import tracing
 PHASES = ["clr.step.forward", "clr.step.mc", "clr.step.losses", "clr.step.backward",
           "clr.step.update"]
 LR_GEN, LR_DIS, EPOCH = 1e-3, 2.5e-5, 30
+
+
+def _phases(inner) -> list:
+    """The step's own phases among the spans inside it."""
+    return [s for s in inner if s.parent == "clr.step"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -66,7 +73,7 @@ def stepped():
     on = _snapshot(states[1]), on_metrics
     held_on = tracing.steps()
     events = [(e.name(), e.start_ns()) for e in prof.profiler.kineto_results.events()
-              if e.name().startswith("clr.step")]
+              if e.name().startswith("clr.")]
     tracing.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         make_train_step(cfg, "prototype_full", proto_phase=False)(
@@ -82,27 +89,32 @@ def test_no_span_without_the_profiler(stepped):
 
 
 def test_a_profiled_step_records_its_phases_in_order(stepped):
-    (root, *phases), = stepped["held_on"]
+    (root, *inner), = stepped["held_on"]
+    phases = _phases(inner)
     assert root.name == "clr.step" and root.parent is None and root.step == 0
+    # the one S||T forward's backbone call, inside the forward phase
+    (backbone,) = [s for s in inner if s not in phases]
+    assert backbone.name == "clr.backbone" and backbone.parent == "clr.step.forward"
+    assert phases[0].start_ns <= backbone.start_ns < backbone.end_ns <= phases[0].end_ns
     assert [p.name for p in phases] == PHASES
     assert all(p.parent == "clr.step" and p.step == 0 for p in phases)
     assert root.start_ns <= phases[0].start_ns and phases[-1].end_ns <= root.end_ns
     for a, b in zip(phases, phases[1:]):  # consecutive: each starts where the last ended
         assert a.start_ns < a.end_ns == b.start_ns
     ms = tracing.summary(stepped["held_on"])
-    assert set(ms) == {"clr.step", "self", *PHASES}
+    assert set(ms) == {"clr.step", "self", "clr.backbone", *PHASES}
     assert ms["self"] >= 0 and all(ms[p] > 0 for p in PHASES)
     assert ms["self"] + sum(ms[p] for p in PHASES) == pytest.approx(ms["clr.step"])
 
 
 def test_a_warmup_step_has_no_mc_phase(stepped):
-    (root, *phases), = stepped["held_warmup"]
+    (root, *inner), = stepped["held_warmup"]
     assert root.step == 1
-    assert [p.name for p in phases] == [p for p in PHASES if p != "clr.step.mc"]
+    assert [p.name for p in _phases(inner)] == [p for p in PHASES if p != "clr.step.mc"]
 
 
 def test_spans_are_on_the_profilers_clock(stepped):
-    """Each ``clr.step*`` event of the profiler starts within 1 ms of the
+    """Each ``clr.*`` event of the profiler starts within 1 ms of the
     buffer's stamp of the same span."""
     held = {s.name: s.start_ns for s in stepped["held_on"][0]}
     assert sorted(name for name, _ in stepped["events"]) == sorted(held)
@@ -151,14 +163,16 @@ def test_the_buffer_keeps_the_last_steps():
     assert tracing.steps() == []
 
 
-@pytest.mark.parametrize("method,norm,phases", [
+@pytest.mark.parametrize("method,norm,phases,backbones", [
     # the standalone MC pass (TransNorm) sits between two forward phases
-    ("prototype_full", "tn", ["forward", "mc", "forward", "losses", "backward", "update"]),
-    ("baseline", "bn", ["forward", "losses", "backward", "update"]),
-    ("mean_teacher", "bn", ["forward", "losses", "backward", "update"]),
-    ("bcdm", "bn", []),  # its step records clr.step alone
+    ("prototype_full", "tn", ["forward", "mc", "forward", "losses", "backward", "update"],
+     ["mc", "forward"]),
+    ("baseline", "bn", ["forward", "losses", "backward", "update"], ["forward"]),
+    ("mean_teacher", "bn", ["forward", "losses", "backward", "update"],
+     ["forward", "forward"]),  # the teacher's and the student's
+    ("bcdm", "bn", [], [None] * 7),  # clr.step alone, and its 7 backbone calls in it
 ])
-def test_each_step_records_its_phases(method, norm, phases):
+def test_each_step_records_its_phases(method, norm, phases, backbones):
     cfg = Config()
     cfg.method.mc_samples = 2
     cfg.model.norm = norm
@@ -170,5 +184,40 @@ def test_each_step_records_its_phases(method, norm, phases):
     (root, *inner), = tracing.steps()
     tracing.clear()
     assert root.name == "clr.step" and root.step == 0
-    assert [s.name for s in inner] == [f"clr.step.{p}" for p in phases]
-    assert all(a.end_ns == b.start_ns for a, b in zip(inner, inner[1:]))
+    own = [s for s in inner if s.name.startswith("clr.step.")]
+    assert [s.name for s in own] == [f"clr.step.{p}" for p in phases]
+    assert all(a.end_ns == b.start_ns for a, b in zip(own, own[1:]))
+    calls = [s for s in inner if s.name == "clr.backbone"]
+    assert len(calls) + len(own) == len(inner)
+    assert [s.parent for s in calls] == ["clr.step" if p is None else f"clr.step.{p}"
+                                         for p in backbones]
+
+
+def test_xceptions_phases_nest_in_the_backbone_span():
+    """On Xception the ``clr.backbone`` span of the S||T forward holds the
+    consecutive phases entry, middle and exit, inside ``clr.step.forward``;
+    the step's phases still close on ``clr.step``."""
+    cfg = Config()
+    cfg.method.mc_samples = 2
+    cfg.model.backbone = "xception"
+    state = create_train_state(cfg, seed=0, device="cpu", method="prototype_full")
+    step = make_train_step(cfg, "prototype_full", proto_phase=True)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(state, _batch(), LR_GEN, LR_DIS, EPOCH)
+    recorded = tracing.steps()
+    tracing.clear()
+    (root, *inner), = recorded
+    phases = _phases(inner)
+    assert [p.name for p in phases] == PHASES
+    (backbone,) = [s for s in inner if s.name == "clr.backbone"]
+    assert backbone.parent == "clr.step.forward"
+    assert phases[0].start_ns <= backbone.start_ns < backbone.end_ns <= phases[0].end_ns
+    flow = [s for s in inner if s.parent == "clr.backbone"]
+    assert [s.name for s in flow] == [f"clr.backbone.{p}" for p in ("entry", "middle", "exit")]
+    assert backbone.start_ns <= flow[0].start_ns and flow[-1].end_ns <= backbone.end_ns
+    assert all(a.end_ns == b.start_ns for a, b in zip(flow, flow[1:]))
+    assert len(inner) == len(phases) + 1 + len(flow)
+    ms = tracing.summary(recorded)
+    assert ms["self"] + sum(ms[p] for p in PHASES) == pytest.approx(ms["clr.step"])
+    assert sum(ms[s.name] for s in flow) <= ms["clr.backbone"] <= ms["clr.step.forward"]

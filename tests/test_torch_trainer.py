@@ -119,13 +119,15 @@ def test_resume_is_exact(straight, tmp_path):
     out2, ref = straight
     first = _run_cli(tmp_path, "first", _small_cfg(1, ["--profile"]))
     assert (tmp_path / "first" / "profile" / "trace.json").exists()
-    # the profiled warm-up step's spans: no MC pass; its epoch gains their host ms
+    # the profiled warm-up step's spans: no MC pass, the S||T forward's backbone
+    # call inside the forward phase; its epoch gains their host ms
     spans = json.loads((tmp_path / "first" / "profile" / "spans.json").read_text())
     phases = ["clr.step.forward", "clr.step.losses", "clr.step.backward", "clr.step.update"]
-    assert [[s["name"] for s in step] for step in spans] == [["clr.step"] + phases]
+    assert [[s["name"] for s in step] for step in spans] == [
+        ["clr.step", phases[0], "clr.backbone"] + phases[1:]]
     assert all(s["step"] == 0 and s["end_ns"] > s["start_ns"] for s in spans[0])
     host_ms = first.epoch_stats[0]["host_ms"]
-    assert set(host_ms) == {"clr.step", "self", *phases}
+    assert set(host_ms) == {"clr.step", "self", "clr.backbone", *phases}
     assert all(host_ms[p] > 0 for p in phases) and host_ms["self"] >= 0
     assert first.iteration == 0
     resumed = _run_cli(tmp_path, "second", _small_cfg(2), "--resume",

@@ -26,6 +26,7 @@ from uda_clr_tpu_torch.models.mobilenet import MobileNetV2
 from uda_clr_tpu_torch.models.resnet import ResNet101
 from uda_clr_tpu_torch.models.xception import AlignedXception
 from uda_clr_tpu_torch.ops.resize import resize_bilinear_align_corners
+from uda_clr_tpu_torch.utils import tracing
 
 # the backbone's (high-level, low-level) output widths: ASPP's input and the
 # decoder's low-level input (deeplab.py:37)
@@ -132,8 +133,10 @@ class DeepLab(Heads):
         _init_convs(self, seed)
 
     def features(self, x, train: bool = False, domains: int = 1):
-        """Backbone only (no dropout in it)."""
-        return self.backbone(x, train, domains)
+        """Backbone only (no dropout in it), inside the span ``clr.backbone``
+        (utils/tracing.py: recorded only while the profiler records)."""
+        with tracing.span("clr.backbone"):
+            return self.backbone(x, train, domains)
 
     def forward(self, x_nhwc: torch.Tensor, train: bool = False, domains: int = 1,
                 stream: DropoutStream | None = None) -> DeepLabOutputs:

@@ -10,6 +10,11 @@ SeparableConv2d, norm) units, less the first ReLU without
 ``start_with_relu``, and its ``skip``/``skipbn`` projection;
 :func:`xception_rep_indices` replays that construction for the weight
 bridge.
+
+While the profiler records, the forward is cut into the consecutive
+phases ``clr.backbone.entry`` (stem and blocks 1-3), ``clr.backbone.middle``
+(blocks 4-19) and ``clr.backbone.exit`` (block 20 and conv3-5) of the
+``clr.backbone`` span that ``DeepLab.features`` opens (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch.nn.functional as F
 
 from uda_clr_tpu_torch.models.layers import Conv2d, fixed_padding, run_block
 from uda_clr_tpu_torch.models.norm import DomainNorm2d
+from uda_clr_tpu_torch.utils import tracing
 
 
 def xception_block_plan(output_stride: int = 16) -> dict:
@@ -121,10 +127,13 @@ class AlignedXception(nn.Module):
             setattr(self, f"bn{i}", DomainNorm2d(cout, mode=norm))
 
     def forward(self, x: torch.Tensor, train: bool, domains: int = 1):
+        tracing.phase("clr.backbone.entry")
         h = F.relu(self.bn1(self.conv1(x), train, domains))
         h = F.relu(self.bn2(self.conv2(h), train, domains))
         low = None
         for i in range(1, 21):
+            if i in (4, 20):
+                tracing.phase("clr.backbone.middle" if i == 4 else "clr.backbone.exit")
             h = run_block(getattr(self, f"block{i}"), h, train, domains, self.remat)
             if i == 1:
                 h = low = F.relu(h)

@@ -58,7 +58,8 @@ forward), ``clr.step.mc`` (the MC pass, where the step has one; the
 standalone pass sits between two forward phases), ``clr.step.losses``,
 ``clr.step.backward`` (the generator's backward and gradient averaging)
 and ``clr.step.update`` (Adam, the discriminators' games, the bank
-commit, the teacher's EMA).
+commit, the teacher's EMA). Each backbone call inside a step records its
+own ``clr.backbone`` span (models/deeplab.py) within the open phase.
 """
 
 from __future__ import annotations
