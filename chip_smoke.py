@@ -66,11 +66,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 4. drives the flagship ``prototype_full`` step at full width (mobilenet
    DeepLabv3+ OS16, 512x512, 8 source + 8 target images, T=8 MC samples,
    bfloat16): one warmup step, then five prototype-phase steps, checking
-   finite losses, moving prototype banks, one K1 launch per
-   prototype-phase step and K4's launches per step against the
-   generator's norm sites (one moments and one normalize a site, one
-   reduce and one dx a site that takes a gradient, plus the MC suffix's 5
-   moments and 2 normalizes);
+   finite losses, moving prototype banks and one K1 launch per
+   prototype-phase step. The step's prefix replays as CUDA graphs
+   (train/graphs.py) from the warmup step on; a sixth prototype-phase step
+   under ``torch.profiler`` must replay and run on the card the
+   ``domain_norm`` kernels, name by name, of an eager prototype-phase step.
+   That eager step and an eager warmup step run first on a second state of
+   the same seed, whose norm modules carry forward hooks (a hook keeps the
+   prefix eager): their K4 launches are checked against the generator's
+   norm sites (one moments and one normalize a site, one reduce and one dx
+   a site that takes a gradient, plus the MC suffix's 5 moments and 2
+   normalizes);
 5. drives ``prototype_mt`` at the same width under the fused dropout kernel
    (``set_dropout_impl('pallas')``): one warmup step, then five
    prototype-phase steps, asserting K1 and K3's launches per step;
@@ -170,7 +176,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    CLI with ``run.mesh_shape: [1, 2]`` (a warmup epoch and a
    prototype-phase epoch, one writer, parameters equal bit for bit);
 18. prints a ``kernels`` JSON line (each kernel's launches summed over every
-   path driven above, the data-parallel and spatial ranks' included), the
+   path driven above, the data-parallel and spatial ranks' included: the
+   host's calls of each wrapper, so K4's leave out what a replayed graph
+   runs; beside them the card's ``domain_norm`` kernels of one replayed
+   flagship step, as step 4's profiler counted them), the
    card's name and power limit, and as its last line ``{"ok": true,
    "device": {...}}``.
 
@@ -700,6 +709,66 @@ def same_counts(got: dict, want: dict) -> bool:
     return {k: got.get(k, 0) for k in want} == want
 
 
+def card_kernels(torch, prof, word: str = "domain_norm") -> dict:
+    """The card's kernels whose names hold ``word`` in a ``torch.profiler``
+    run, counted by name."""
+    got: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and word in e.name():
+            got[e.name()] = got.get(e.name(), 0) + 1
+    return got
+
+
+def norm_sites(torch, mh, K3, ports, cfg, method: str, batch, proto_bank, norm_suffix) -> dict:
+    """An eager warmup step and an eager prototype-phase step of ``method``
+    on a state of seed 0, its norm modules hooked (a module hook keeps the
+    step's prefix eager, train/graphs.py): K4's launches in each held to
+    the generator's norm sites (one moments launch per train-mode site, plus
+    ``norm_suffix``'s moments and normalize launches in the prototype-phase
+    step outside the norm modules; one normalize per site; one reduce and
+    one dx per site whose output takes a gradient). Returns the card's
+    ``domain_norm`` kernels of the prototype-phase step under
+    ``torch.profiler``, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uda_clr_tpu_torch.models.norm import DomainNorm2d
+
+    _, create_train_state, make_train_step, _ = ports
+    state = create_train_state(cfg, seed=0, device="cuda", method=method, proto_bank=proto_bank)
+    sites = {"all": 0, "train": 0, "grad": 0}
+
+    def count_site(module, inputs, output):
+        sites["all"] += 1
+        sites["train"] += int(bool(inputs[1]))
+        sites["grad"] += int(output.requires_grad)
+
+    for m in state.gen.modules():
+        if isinstance(m, DomainNorm2d):
+            m.register_forward_hook(count_site)
+    card = None
+    for proto, extra in ((False, (0, 0)), (True, norm_suffix)):
+        step = make_train_step(cfg, method, proto_phase=proto)
+        reset_counts(mh, K3)
+        with profile(activities=[ProfilerActivity.CUDA]) if proto else contextlib.nullcontext() \
+                as prof:
+            state, _ = step(state, batch, 1e-3, 2.5e-5)
+            torch.cuda.synchronize()
+        want = dict(zip(K4_KEYS, (sites["train"] + extra[0], sites["all"] + extra[1],
+                                  sites["grad"], sites["grad"])))
+        got = {k: v for k, v in counts(mh, K3).items() if k in K4_KEYS}
+        if got != want:
+            fail(f"{method} eager {'prototype' if proto else 'warmup'} step: K4 launches {got}, "
+                 f"its norm sites give {want}")
+        sites.update(all=0, train=0, grad=0)
+        if proto:
+            card = card_kernels(torch, prof)
+    say(f"{method} eager steps: K4 launches per norm site as expected; the eager "
+        f"prototype-phase step ran {sum(card.values())} domain_norm kernels on the card")
+    del state
+    torch.cuda.empty_cache()
+    return card
+
+
 def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: str = "",
                    steps: int = PROTO_STEPS, warmup: bool = True, configure=None,
                    proto_bank=None, keys=None, banks_move: bool = True, info=None,
@@ -712,14 +781,17 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
     metrics' names against ``keys`` when given, and the banks must move
     every step (unless ``banks_move`` is False: then it is only said).
     With ``norm_suffix`` (the K4 moments and normalize launches a
-    prototype-phase step makes outside the generator's norm modules) K4's
-    launches are checked too: one moments launch per train-mode norm site
-    of the generator, one normalize per site, one reduce and one dx per
-    site whose output takes a gradient, counted by forward hooks. Returns
-    the path's launch counts and the median step ms (over steps 1 on: step
-    0 carries first-call costs); fills ``info`` (a dict) with the
+    prototype-phase step makes outside the generator's norm modules) K4 is
+    checked too: :func:`norm_sites` first, on eager steps; then, after the
+    timed steps, one more prototype-phase step under ``torch.profiler``,
+    whose prefix must replay and whose card must run the eager step's
+    ``domain_norm`` kernels (``info["k4_card"]``). Returns the path's
+    launch counts (the host's calls) and the median step ms (over steps 1
+    on: step 0 carries first-call costs); fills ``info`` (a dict) with the
     peak GiB, img/s, the warmup step's ms and metrics and the generator's
     backbone running stats after it."""
+    from uda_clr_tpu_torch.utils import tracing
+
     Config, create_train_state, make_train_step, _ = ports
     name = name or method
     cfg = full_width_cfg(Config)
@@ -727,33 +799,17 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
         configure(cfg)
     batch = full_width_batch(torch, np)
     b = batch["image_s"].shape[0]
+    k4_card = norm_sites(torch, mh, K3, ports, cfg, method, batch, proto_bank,
+                         norm_suffix) if norm_suffix else None
     state = create_train_state(cfg, seed=0, device="cuda", method=method, proto_bank=proto_bank)
     warm = make_train_step(cfg, method, proto_phase=False)
     proto = make_train_step(cfg, method, proto_phase=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sites = {"all": 0, "train": 0, "grad": 0}
-    hooks = []
-    if norm_suffix:
-        from uda_clr_tpu_torch.models.norm import DomainNorm2d
-
-        def count_site(module, inputs, output):
-            sites["all"] += 1
-            sites["train"] += int(bool(inputs[1]))
-            sites["grad"] += int(output.requires_grad)
-
-        hooks = [m.register_forward_hook(count_site) for m in state.gen.modules()
-                 if isinstance(m, DomainNorm2d)]
-
-    def expect_norms(extra: tuple) -> None:
-        if norm_suffix:
-            for k, n in zip(K4_KEYS, (sites["train"] + extra[0], sites["all"] + extra[1],
-                                      sites["grad"], sites["grad"])):
-                expect[k] += n
-            sites.update(all=0, train=0, grad=0)
+    tracing.clear_counts()
 
     reset_counts(mh, K3)  # counts from here on are this path's
-    expect = dict.fromkeys(K13_KEYS + (K4_KEYS if norm_suffix else ()), 0)
+    expect = dict.fromkeys(K13_KEYS, 0)
     if warmup:
         t0 = time.perf_counter()
         state, m = warm(state, batch, 1e-3, 2.5e-5)
@@ -763,7 +819,6 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
         check_metrics(m, f"{name} warmup")
         for k, n in per_step["warmup"].items():
             expect[k] += n
-        expect_norms((0, 0))
         check_counts(mh, K3, expect, f"{name} warmup step")
         say(f"{name} warmup step: {warm_ms:.1f} ms (first step), {fmt(m)}")
         if info is not None:
@@ -785,17 +840,35 @@ def prototype_path(torch, np, ports, mh, K3, method: str, per_step: dict, name: 
             fail(f"{name}: metrics {sorted(m)}, want {sorted(keys)}")
         for k, n in per_step["proto"].items():
             expect[k] += n
-        expect_norms(norm_suffix or (0, 0))
         check_counts(mh, K3, expect, f"{name} prototype step {i}")
         if method == "prototype":
             banks.append(torch.cat([state.proto_bank[k] for k in ("cup", "disc")]).clone())
         else:
             banks.append(torch.cat([state.proto_src, state.proto_trg]).clone())
         say(f"{name} prototype step {i}: {step_ms[-1]:.1f} ms, {fmt(m)}")
+    if norm_suffix:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, m = proto(state, batch, 1e-3, 2.5e-5)
+            torch.cuda.synchronize()
+        take_viz(m, f"{name} profiled prototype step")
+        check_metrics(m, f"{name} profiled prototype step")
+        for k, n in per_step["proto"].items():
+            expect[k] += n
+        check_counts(mh, K3, expect, f"{name} profiled prototype step")
+        graphed, card = tracing.graph_counts(), card_kernels(torch, prof)
+        if graphed["capture"] != 1 or graphed["eager"] or graphed["replay"] != steps + warmup:
+            fail(f"{name}: the step's prefix ran {graphed}, want one capture, then replays")
+        if card != k4_card:
+            fail(f"{name}: a replayed prototype-phase step ran the domain_norm kernels {card}, "
+                 f"an eager one {k4_card}")
+        say(f"{name} profiled prototype step: the prefix replayed ({graphed}); "
+            f"{sum(card.values())} domain_norm kernels on the card, as eagerly")
+        if info is not None:
+            info.update(k4_card=card)
     launches = counts(mh, K3)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for h in hooks:
-        h.remove()
 
     if method != "prototype" and not (bool(state.proto_src_init) and bool(state.proto_trg_init)):
         fail(f"{name}: the prototype banks were never seeded")
@@ -2572,8 +2645,9 @@ def main() -> None:
     longran = longrun_phase(torch, mh, K3, card)
 
     # the flagship path: K1 once per prototype-phase step, no K3 under 'xla16'
+    flagship_info: dict = {}
     flagship, flagship_ms = prototype_path(torch, np, ports, mh, K3, "prototype_full", {
-        "warmup": {}, "proto": {"k1": 1}}, norm_suffix=MC_SUFFIX_NORMS)
+        "warmup": {}, "proto": {"k1": 1}}, info=flagship_info, norm_suffix=MC_SUFFIX_NORMS)
     # the paper's full method under the fused dropout kernel
     sites = K3_SITES_PER_FORWARD
     layers.set_dropout_impl("pallas")
@@ -2697,10 +2771,12 @@ def main() -> None:
         row("dropout_backward", drop_src, "uda_clr_tpu/ops/pallas/dropout.py:70",
             launched["k3_bwd"], k3_numbers["bwd"], k3_numbers["bwd"]["library_ms"]),
         # K4: its four passes summed over K4_SITES; no Pallas kernel (XLA
-        # fused the norm)
+        # fused the norm). Its launches are the host's calls: a replayed
+        # graph's kernels are in the profiled flagship step's count
         {**row("domain_norm", "uda_clr_tpu_torch/csrc/domain_norm.cu", None,
                {k[3:]: launched[k] for k in K4_KEYS}, k4_numbers, k4_numbers["library_ms"]),
-         "max_rel_err": k4_numbers["max_rel_err"]},
+         "max_rel_err": k4_numbers["max_rel_err"],
+         "card_kernels_per_flagship_step": flagship_info["k4_card"]},
     ]
     say(json.dumps({"kernels": kernels}))
     say(card)

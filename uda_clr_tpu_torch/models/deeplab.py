@@ -98,6 +98,11 @@ class Heads(nn.Module):
         """ASPP minus its final dropout, plus the low-level projection."""
         return self.aspp.predrop(high, train, domains), self.decoder.low_prefix(low, train, domains)
 
+    def prefix_parameters(self) -> list:
+        """The parameters :meth:`heads_prefix` reads."""
+        dec = self.decoder
+        return [*self.aspp.parameters(), *dec.conv1.parameters(), *dec.bn1.parameters()]
+
     def heads_suffix(self, feat_predrop, ll, out_hw, train: bool = False,
                      domains: int = 1, stream: DropoutStream | None = None):
         """ASPP dropout + decoder heads + align-corners upsample to ``out_hw``.

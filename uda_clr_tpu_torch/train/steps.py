@@ -45,6 +45,11 @@ space group, the discriminators run on gathered inputs; the global draws
 take this data index's rows (over ``n_data``) and this stripe. K1 and K3
 run on each rank's stripe, with global moments.
 
+On one card the main forward's deterministic prefix (backbone, ASPP
+before its dropout, the low-level projection) replays as CUDA graphs,
+forward and backward, captured at its first call (train/graphs.py, which
+lists where it stays eager); every other forward runs eagerly.
+
 A uint8 wire batch is decoded to float32 first (data/wire.py), as the JAX
 step does (steps.py:559). bf16: the batch is then cast to
 ``cfg.model.compute_dtype`` once; every conv
@@ -59,7 +64,8 @@ standalone pass sits between two forward phases), ``clr.step.losses``,
 ``clr.step.backward`` (the generator's backward and gradient averaging)
 and ``clr.step.update`` (Adam, the discriminators' games, the bank
 commit, the teacher's EMA). Each backbone call inside a step records its
-own ``clr.backbone`` span (models/deeplab.py) within the open phase.
+own ``clr.backbone`` span (models/deeplab.py; train/graphs.py around a
+replay) within the open phase.
 """
 
 from __future__ import annotations
@@ -91,6 +97,7 @@ from uda_clr_tpu_torch.parallel import distributed as dist_lib
 from uda_clr_tpu_torch.parallel import spatial
 from uda_clr_tpu_torch.parallel.mesh import check_stripes, local_rows, local_stripe
 from uda_clr_tpu_torch.parallel.reduce import all_sum, average_grads, mean_metrics
+from uda_clr_tpu_torch.train import graphs
 from uda_clr_tpu_torch.train import optim as optim_lib
 from uda_clr_tpu_torch.train.state import TrainState, discriminators_used
 from uda_clr_tpu_torch.utils import tracing
@@ -416,8 +423,7 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
         map_s, boundary_s = batch["map_s"], batch["boundary_s"]
         b = image_s.shape[0]
         image_t = batch["image_t"].to(dt) if use_target else None
-        x_all = nchw(torch.cat([image_s, image_t], dim=0) if use_target else image_s)
-        hw = tuple(x_all.shape[2:])
+        hw = tuple(image_s.shape[1:3])
         domains = 2 if use_target else 1
 
         # ---- teacher forward (eval mode, noised target view) ----
@@ -444,10 +450,11 @@ def make_train_step(cfg: Config, method: str = "prototype_full", proto_phase: bo
                                     step_seed, mcfg.mask_head_impl).float()
             tracing.phase("clr.step.forward")
 
-        # ---- one forward of the batch (S||T, or the source alone) ----
+        # ---- one forward of the batch (S||T, or the source alone); its
+        # deterministic prefix as CUDA graphs where they may run ----
         with global_rows(None) if use_target else one_domain(b):
-            high, low = gen.features(x_all, True, domains)
-            fp_all, ll_all = gen.heads_prefix(high, low, True, domains)
+            fp_all, ll_all = graphs.prefix(gen, [image_s, image_t] if use_target else [image_s],
+                                           domains)
             outs = gen.heads_suffix(fp_all, ll_all, hw, True, domains, layers_lib.DropoutStream(
                 g, stream_seed(step_seed, _MAIN_FORWARD)))
         if mc_inline:

@@ -22,6 +22,12 @@ path. :func:`steps` reads them in order, :func:`summary` gives each span
 name's milliseconds per step (or the part of given intervals inside it),
 :func:`clear` empties the buffer. Open spans nest on one stack: open them
 from the thread that runs the step.
+
+Counters, kept on every call whether or not the profiler records (one
+integer add each): how the step's prefix ran (train/graphs.py), as
+``clr.graph.capture``, ``clr.graph.replay`` or
+``clr.graph.eager.<reason>``. :func:`graph_counts` reads them with the
+replay share, :func:`clear_counts` resets them.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ class Span(NamedTuple):
 
 _steps: collections.deque = collections.deque(maxlen=CAPACITY)
 _open: list = []  # the open spans, outermost first
+_counts: collections.Counter = collections.Counter()
+_EAGER = "clr.graph.eager."
 
 
 class _Open:
@@ -118,6 +126,26 @@ def steps(before_ns: int | None = None, last: int | None = None) -> list:
 
 def clear() -> None:
     _steps.clear()
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name``."""
+    _counts[name] += 1
+
+
+def clear_counts() -> None:
+    _counts.clear()
+
+
+def graph_counts() -> dict:
+    """``{"capture": n, "replay": n, "eager": {reason: n}, "replay_share":
+    replays over all calls (None before the first)}`` of the prefix's
+    calls since :func:`clear_counts`."""
+    eager = {k[len(_EAGER):]: n for k, n in _counts.items() if k.startswith(_EAGER)}
+    capture, replay = _counts["clr.graph.capture"], _counts["clr.graph.replay"]
+    calls = capture + replay + sum(eager.values())
+    return {"capture": capture, "replay": replay, "eager": eager,
+            "replay_share": replay / calls if calls else None}
 
 
 def summary(recorded: list, within=None) -> dict:
